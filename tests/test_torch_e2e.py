@@ -1,0 +1,116 @@
+"""infer_fast(num_beams=1, do_sample=False) end to end: the port against the
+JAX engine with the same weights, the same prompt and the same text, at the
+small config of tests/test_engine.py with max_mel_tokens raised to 260 so
+that both engines take the fused+stream route (the slice; decode caps
+<= 256 go to the one-program route instead)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from index_tts_dubbing_tpu.engine import decode as jdecode
+from index_tts_dubbing_tpu.engine.tts import IndexTTS as JaxTTS
+from index_tts_dubbing_tpu.models import bigvgan as jbigvgan
+from index_tts_dubbing_tpu.models import gpt as jgpt
+from index_tts_dubbing_tpu.utils import audio as jaudio
+from index_tts_dubbing_tpu.utils import config as jconfig
+from index_tts_dubbing_tpu_torch import config as pconfig
+from index_tts_dubbing_tpu_torch import weights
+from index_tts_dubbing_tpu_torch.engine.tts import IndexTTS as PortTTS
+
+GPT_SMALL = dict(model_dim=64, layers=2, heads=4, max_mel_tokens=260,
+                 max_text_tokens=50, number_text_tokens=120,
+                 cond_output_size=32, cond_linear_units=64,
+                 cond_attention_heads=4, cond_num_blocks=2)
+BV_SMALL = dict(gpt_dim=64, upsample_initial_channel=128)
+# three sentences at max_text_tokens_per_sentence=20: 3 rows, padded to the
+# batch bucket 4 with one dead row
+TEXT = "Hello there friend. The quick brown fox jumps. Over the lazy dog!"
+KW = dict(num_beams=1, do_sample=False, max_text_tokens_per_sentence=20)
+
+
+def _jax_top2_gap(jeng, prompt, step_codes, row, step):
+    """The JAX engine's processed-logit gap between its best and second-best
+    token for ``row`` at decode ``step`` (teacher-forced on its own codes)."""
+    cfg = jeng.gpt_cfg
+    params = jeng.params["gpt"]
+    conds = jeng._conditioning(jeng._cond_mel(prompt))
+    sents = jeng.tokenizer.split_sentences(jeng.tokenizer.tokenize(TEXT), 20)
+    rows = [np.asarray(jeng.tokenizer.convert_tokens_to_ids(s), np.int32)
+            for s in sents]
+    rows += [np.array([2], np.int32)] * (step_codes.shape[0] - len(rows))
+    pad_to = next(b for b in jeng.TEXT_BUCKETS if b >= max(r.size for r in rows))
+    pre = jdecode.prepare_prefix_host(cfg, rows, pad_to=pad_to)
+    emb, keep = jdecode.build_prefix_emb(
+        params, cfg, conds, *(pre[k] for k in ("ids", "pos", "seg", "cond_idx")))
+    b, s0 = keep.shape
+    cache = jgpt.init_cache(cfg, b, s0 + step + 1, dtype=emb.dtype)
+    h, cache = jgpt.trunk_prefill(params, cfg, emb, keep, cache)
+    keep_all = np.concatenate([np.asarray(keep), np.ones((b, step + 1), bool)], 1)
+    for j in range(1, step + 1):
+        x = (params["mel_emb"]["w"][step_codes[:, j - 1]]
+             + params["mel_pos"]["w"][j + 1]).astype(emb.dtype)
+        kk = keep_all & (np.arange(s0 + step + 1)[None, :] <= s0 + j - 1)
+        h, cache = jgpt.trunk_decode_step(params, cfg, x, cache, s0 + j - 1, kk)
+    seen = np.zeros((b, cfg.number_mel_codes), bool)
+    seen[:, [1, cfg.start_mel_token]] = True
+    for j in range(step):
+        seen[np.arange(b), step_codes[:, j]] = True
+    sc = jdecode.SamplingConfig(do_sample=False, max_mel_tokens=260)
+    logits = np.asarray(jdecode._process_logits(
+        jgpt.mel_logits_from_hidden(params, h), jnp.asarray(seen), sc))[row]
+    top2 = np.sort(logits)[-2:]
+    return float(top2[1] - top2[0])
+
+
+def test_infer_fast_greedy_matches_jax(tmp_path):
+    jcfg = jconfig.EngineConfig(gpt=jgpt.GPTConfig(**GPT_SMALL),
+                                bigvgan=jbigvgan.BigVGANConfig(**BV_SMALL))
+    jeng = JaxTTS(config=jcfg, verbose_init=False, seed=0)
+    pcfg = pconfig.EngineConfig(gpt=pconfig.GPTConfig(**GPT_SMALL),
+                                bigvgan=pconfig.BigVGANConfig(**BV_SMALL))
+    peng = PortTTS(config=pcfg, device="cpu", verbose_init=False,
+                   params=weights.from_jax_params(jeng.params))
+    rng = np.random.default_rng(1)
+    prompt = tmp_path / "prompt.wav"
+    jaudio.write_wav(prompt, (rng.standard_normal(24000) * 0.1
+                              ).astype(np.float32), 24000)
+
+    jsr, jwav = jeng.infer_fast(str(prompt), TEXT, **dict(KW))
+    psr, pwav = peng.infer_fast(str(prompt), TEXT, **dict(KW))
+    assert jeng.last_fused_flavor == peng.last_fused_flavor == "fused+stream"
+    jcodes = np.asarray(jeng.last_fused_res.codes)
+    pcodes = peng.last_fused_res.codes.numpy()
+    assert jcodes.shape == pcodes.shape == (4, 260)
+    mismatch = np.argwhere(jcodes != pcodes)
+    if mismatch.size:
+        row, step = map(int, mismatch[np.argmin(mismatch[:, 1])])
+        gap = _jax_top2_gap(jeng, str(prompt), jcodes, row, step)
+        # a float32 near-tie is the only admissible reason to diverge
+        assert gap < 1e-4, (row, step, gap)
+        return
+    np.testing.assert_array_equal(np.asarray(jeng.last_fused_res.lens),
+                                  peng.last_fused_res.lens.numpy())
+    assert jsr == psr == 24000
+    assert pwav.dtype == jwav.dtype == np.int16
+    assert pwav.shape == jwav.shape
+    # float32 waveforms agree to ~1e-5 (tests/test_torch_modules.py); the
+    # int16 cast of clip(wav·32767) then differs by at most 2 LSB
+    diff = np.abs(pwav.astype(np.int32) - jwav.astype(np.int32))
+    assert diff.max() <= 2, diff.max()
+
+
+def test_requests_outside_the_slice_raise():
+    """Beam decode, the one-program flavour (decode cap <= 256), the other
+    entry points and the off-slice constructor options name their later
+    slice instead of running."""
+    pcfg = pconfig.EngineConfig(gpt=pconfig.GPTConfig(**GPT_SMALL),
+                                bigvgan=pconfig.BigVGANConfig(**BV_SMALL))
+    eng = PortTTS(config=pcfg, device="cpu", verbose_init=False)
+    with pytest.raises(NotImplementedError, match="beam decode"):
+        eng.infer_fast("unused.wav", TEXT)                   # num_beams=3
+    with pytest.raises(NotImplementedError, match="one-program"):
+        eng.infer_fast("unused.wav", TEXT, num_beams=1, max_mel_tokens=200)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.infer("unused.wav", TEXT)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PortTTS(config=pcfg, device="cpu", quantize="int8")
