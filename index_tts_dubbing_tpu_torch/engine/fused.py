@@ -21,6 +21,7 @@ class FusedLatResult(NamedTuple):
     gen_lengths: torch.Tensor    # (B,) pre-trim lengths
     lens: torch.Tensor           # (B,) post-trim latent frames per row
     lat: torch.Tensor            # (B, steps, C) latent-pass output
+    steps: int                   # decode steps run (GenerateResult.steps)
 
 
 def synthesize_fused_lat(gpt_params: Dict[str, Any], gpt_cfg: GPTConfig,
@@ -30,23 +31,27 @@ def synthesize_fused_lat(gpt_params: Dict[str, Any], gpt_cfg: GPTConfig,
                          text_ids: torch.Tensor, text_lens: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
                          live: Optional[torch.Tensor] = None,
-                         *, num_beams: int = 1) -> FusedLatResult:
+                         *, num_beams: int = 1,
+                         length_penalty: float = 0.0) -> FusedLatResult:
     """Prefix arrays from ``prepare_prefix_host`` plus unframed text rows
-    (B, L) and their lengths → codes, trimmed lengths and latents."""
-    if num_beams > 1:
-        raise NotImplementedError(
-            "beam decode (num_beams > 1) is the next slice of the port: "
-            "ROADMAP queue A, item 7")
+    (B, L) and their lengths → codes, trimmed lengths and latents.
+    ``num_beams > 1`` decodes by beam sampling (``sc.do_sample``) or beam
+    search; otherwise by sampling or greedy."""
     from index_tts_dubbing_tpu_torch.engine.tts import (
         remove_long_silence_device)
     b = ids.shape[0]
     emb, keep = decode_mod.build_prefix_emb(gpt_params, gpt_cfg, conds, ids,
                                             pos, seg, cond_idx)
-    res = decode_mod.generate(gpt_params, gpt_cfg, sc, emb, keep, generator,
-                              live=live)
+    if num_beams > 1:
+        res = decode_mod._beam_decode(gpt_params, gpt_cfg, sc, emb, keep,
+                                      generator, num_beams, length_penalty,
+                                      stochastic=sc.do_sample, live=live)
+    else:
+        res = decode_mod.generate(gpt_params, gpt_cfg, sc, emb, keep,
+                                  generator, live=live)
     codes, lens = remove_long_silence_device(res.codes, gpt_cfg.stop_mel_token)
     if conds.shape[0] == 1 and b > 1:
         conds = conds.expand((b,) + conds.shape[1:])
     lat = gpt_model.forward_latent_bucketed(gpt_params, gpt_cfg, conds,
                                             text_ids, text_lens, codes, lens)
-    return FusedLatResult(res.codes, res.lengths, lens, lat)
+    return FusedLatResult(res.codes, res.lengths, lens, lat, res.steps)

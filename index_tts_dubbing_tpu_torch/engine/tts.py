@@ -1,10 +1,13 @@
 """IndexTTS engine: zero-shot TTS with the reference's public API.
 
-Counterpart of the JAX package's ``engine/tts.py`` for the first slice of
-the port: ``infer_fast`` with ``num_beams=1`` on the fused route's
-"fused+stream" flavour (decode → trim → latent pass on the device, then the
-windowed C-major vocoder on kernels K1 and K2). Requests outside the slice
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+Counterpart of the JAX package's ``engine/tts.py`` for what the port
+covers so far: ``infer_fast`` on the fused route's "fused+stream" flavour
+(decode → trim → latent pass on the device, then the windowed C-major
+vocoder on kernels K1 and K2). The decode is the reference's default,
+beam sampling with ``num_beams=3``, or beam search (``do_sample=False``),
+or with ``num_beams=1`` sampling or greedy; the report names the one that
+ran. Requests outside the port raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -122,6 +125,8 @@ class StageTimes:
     bigvgan: float = 0.0        # windowed vocoder
     total: float = 0.0
     audio_seconds: float = 0.0
+    decode: str = ""            # which decode ran
+    decode_steps: int = 0       # its steps
 
     @property
     def rtf(self) -> float:
@@ -216,10 +221,11 @@ class IndexTTS:
                                           cond_mel.transpose(1, 2), lens)
 
     def _sampling_config(self, kw: Dict[str, Any]) -> SamplingConfig:
-        # reference defaults: num_beams=3 (beam sampling); num_beams=1 is
-        # plain sampling (do_sample=True) or greedy (do_sample=False)
+        # reference defaults: num_beams=3 with do_sample=True is beam
+        # sampling, with do_sample=False beam search; num_beams=1 is plain
+        # sampling or greedy
         self._num_beams = kw.pop("num_beams", 3)
-        kw.pop("length_penalty", None)      # beam decode only (next slice)
+        self._length_penalty = kw.pop("length_penalty", 0.0)
         return SamplingConfig(
             do_sample=kw.pop("do_sample", True),
             top_p=kw.pop("top_p", 0.8),
@@ -241,18 +247,23 @@ class IndexTTS:
         limit = min(self.TEXT_BUCKETS[-1], self.gpt_cfg.max_text_tokens)
         return not any(r.size == 0 or r.size > limit for r in rows)
 
-    def _synthesize_fused_public(self, conds: torch.Tensor,
-                                 rows: List[np.ndarray], sc: SamplingConfig,
-                                 spk: torch.Tensor, times: StageTimes
-                                 ) -> Tuple[np.ndarray, np.ndarray]:
-        """Pad the batch to a FUSED_BATCH_BUCKET with dead rows (``live``
-        False: stop at decode step 0, zero stream frames), run decode →
-        trim → latent on the device, then vocode the real rows' stream.
-        Returns (float32 wav, per-row latent frames of the real rows)."""
+    def sentence_rows(self, text: str, max_text_tokens_per_sentence: int = 100
+                      ) -> List[np.ndarray]:
+        """Text → one int32 token-id row per sentence, as infer_fast splits it."""
+        sentences = self.tokenizer.split_sentences(
+            self.tokenizer.tokenize(text), max_text_tokens_per_sentence)
+        return [np.asarray(self.tokenizer.convert_tokens_to_ids(s), np.int32)
+                for s in sentences]
+
+    def fused_batch(self, rows: List[np.ndarray]) -> Dict[str, torch.Tensor]:
+        """The fused route's device inputs for sentence rows: the batch padded
+        to a FUSED_BATCH_BUCKET with dead rows (``live`` False: done at
+        decode step 0, zero stream frames) and the text to a TEXT_BUCKET.
+        Returns the prefix arrays (ids, pos, seg, cond_idx), the unframed
+        text rows and their lengths, and ``live``."""
         n_real = len(rows)
         n_pad = next(bb for bb in self.FUSED_BATCH_BUCKETS if bb >= n_real)
         rows = list(rows) + [np.array([2], np.int32)] * (n_pad - n_real)
-        live = torch.as_tensor(np.arange(n_pad) < n_real, device=self.device)
         lmax = max(r.size for r in rows)
         pad_to = next((bb for bb in self.TEXT_BUCKETS if bb >= lmax), lmax)
         pre = decode_mod.prepare_prefix_host(self.gpt_cfg, rows, pad_to=pad_to)
@@ -262,14 +273,37 @@ class IndexTTS:
             text[i, : r.size] = r
             tlens[i] = r.size
         dev = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=self.device)
+        out = {k: dev(pre[k]) for k in ("ids", "pos", "seg", "cond_idx")}
+        out.update(text=dev(text), text_lens=dev(tlens),
+                   live=torch.as_tensor(np.arange(n_pad) < n_real,
+                                        device=self.device))
+        return out
+
+    def _decode_name(self, sc: SamplingConfig) -> str:
+        if self._num_beams > 1:
+            kind = "beam sampling" if sc.do_sample else "beam search"
+            return f"{kind} (num_beams={self._num_beams}, reorder=anc)"
+        return "sampling" if sc.do_sample else "greedy"
+
+    def _synthesize_fused_public(self, conds: torch.Tensor,
+                                 rows: List[np.ndarray], sc: SamplingConfig,
+                                 spk: torch.Tensor, times: StageTimes
+                                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """Run decode → trim → latent on the device for the padded batch of
+        ``fused_batch``, then vocode the real rows' stream. Returns
+        (float32 wav, per-row latent frames of the real rows)."""
+        n_real = len(rows)
+        x = self.fused_batch(rows)
         t0 = time.perf_counter()
         res = fused_mod.synthesize_fused_lat(
-            self.params["gpt"], self.gpt_cfg, sc, conds, dev(pre["ids"]),
-            dev(pre["pos"]), dev(pre["seg"]), dev(pre["cond_idx"]), dev(text),
-            dev(tlens), self._generator, live,
-            num_beams=self._num_beams)
+            self.params["gpt"], self.gpt_cfg, sc, conds, x["ids"], x["pos"],
+            x["seg"], x["cond_idx"], x["text"], x["text_lens"],
+            self._generator, x["live"], num_beams=self._num_beams,
+            length_penalty=self._length_penalty)
         lens_all = res.lens.cpu().numpy()            # the one host sync
         times.gpt_gen += time.perf_counter() - t0
+        times.decode = self._decode_name(sc)
+        times.decode_steps = res.steps
         self.last_fused_res = res
         self.last_fused_flavor = "fused+stream"
         t0 = time.perf_counter()
@@ -280,8 +314,6 @@ class IndexTTS:
         return wav, lens_all[:n_real]
 
     def _check_covered(self, sc: SamplingConfig) -> None:
-        if self._num_beams > 1:
-            raise _later("beam decode (num_beams > 1)", "queue A, item 7")
         if sc.max_mel_tokens <= self.FUSED_FULL_VOCODE_MAX_STEPS:
             raise _later("the one-program 'fused' flavour (max_mel_tokens <= "
                          f"{self.FUSED_FULL_VOCODE_MAX_STEPS})",
@@ -298,17 +330,14 @@ class IndexTTS:
         self._check_covered(sc)
         cond_mel = self._cond_mel(audio_prompt)
         conds = self._conditioning(cond_mel)
-        tokens = self.tokenizer.tokenize(text)
-        sentences = self.tokenizer.split_sentences(
-            tokens, max_text_tokens_per_sentence)
+        sent_rows = self.sentence_rows(text, max_text_tokens_per_sentence)
         sr = self.cfg.mel.sample_rate
         spk = self.vocoder.speaker_embedding(cond_mel.transpose(1, 2))
-        sent_rows = [np.asarray(self.tokenizer.convert_tokens_to_ids(s),
-                                np.int32) for s in sentences]
         if not self._fused_eligible(sent_rows):
             raise _later("the staged infer_fast route", "queue A, item 12")
         if verbose:
-            print(f">> {len(tokens)} tokens, {len(sentences)} sentences")
+            print(f">> {sum(r.size for r in sent_rows)} tokens, "
+                  f"{len(sent_rows)} sentences")
         wav, _ = self._synthesize_fused_public(conds, sent_rows, sc, spk, times)
         wav = np.clip(wav * 32767.0, -32767.0, 32767.0)
         times.total = time.perf_counter() - start_time
@@ -325,6 +354,7 @@ class IndexTTS:
     def _report(self, times: StageTimes) -> None:
         print(">> [fast] synthesis path: fused (decode+trim+latent on the "
               "device + streamed vocode)")
+        print(f">> [fast] decode: {times.decode}, {times.decode_steps} steps")
         print(f">> [fast] gpt_gen_time: {times.gpt_gen:.2f} s")
         print(f">> [fast] bigvgan_time: {times.bigvgan:.2f} s")
         print(f">> [fast] Total inference time: {times.total:.2f} s")

@@ -1,9 +1,10 @@
 """UnifiedVoice: GPT-2 AR decoder over [cond(32) · text · mel-code] streams.
 
-Counterpart of the JAX package's ``models/gpt.py`` for the sampling slice:
-the full-sequence trunk, prefill and single-token decode over a KV cache
-that is allocated once (``init_cache``) and written in place, the mel head,
-conditioning, and the bucketed latent pass. ``params["blocks"]`` is a list
+Counterpart of the JAX package's ``models/gpt.py``: the full-sequence
+trunk, prefill and single-token decode over a KV cache that is allocated
+once (``init_cache``) and written in place; the beam decode's split cache
+(prefix once per row, generated region per beam) with its two decode steps;
+the mel head, conditioning, and the bucketed latent pass. ``params["blocks"]`` is a list
 of per-layer dicts (``weights.from_jax_params`` unstacks the JAX package's
 stacked layout). Attention is plain matmul → mask → softmax → matmul with
 float32 scores, as in the JAX trunk.
@@ -86,8 +87,8 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def init_cache(cfg: GPTConfig, batch: int, max_len: int,
-               dtype=torch.float32, device="cpu") -> KVCache:
+def init_cache(cfg: GPTConfig, batch: int, max_len: int, dtype,
+               device) -> KVCache:
     shape = (cfg.layers, batch, cfg.heads, max_len, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
@@ -126,6 +127,137 @@ def trunk_decode_step(params: Params, cfg: GPTConfig, x: torch.Tensor,
                     kbias, scale)
         x = _block_out(cfg, blk, x, o)
     return nn.layer_norm(params["ln_f"], x[:, 0, :])
+
+
+class SplitCache(NamedTuple):
+    """Beam-decode KV cache split into a frozen prefix and a generated
+    region. The prefix [cond · text · start_mel] is identical across the nb
+    beams of a batch row, so it is stored once per row and shared at
+    attention time; only the generated region exists per beam, and only it
+    is reordered when beams switch ancestry."""
+    kp: torch.Tensor  # (L, B, H, S0, D) prefix keys, frozen after prefill
+    vp: torch.Tensor  # (L, B, H, S0, D)
+    kg: torch.Tensor  # (L, BN, H, G, D), or (L, B, H, nb, G, D) for "anc"
+    vg: torch.Tensor
+
+
+def init_gen_cache(cfg: GPTConfig, bn: int, gen_len: int, dtype, device
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gen-region cache (L, BN, H, G, D), rows in physical beam order."""
+    shape = (cfg.layers, bn, cfg.heads, gen_len, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_gen_cache_anc(cfg: GPTConfig, b: int, nb: int, gen_len: int, dtype,
+                       device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gen-region cache in the heads-major ancestry layout
+    (L, B, H, nb, G, D): a row's nb beams of one head are one contiguous
+    (nb·G, D) block, so attention over every physical beam is one matmul."""
+    shape = (cfg.layers, b, cfg.heads, nb, gen_len, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _split_biases(keep_p: torch.Tensor, g_len: int, slot: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Additive float32 biases: prefix (B, 1, 1, S0) from the pad mask, gen
+    (G,) opening slots <= ``slot``."""
+    pbias = torch.where(keep_p, 0.0, _NEG).float()[:, None, None, :]
+    ar = torch.arange(g_len, device=keep_p.device)
+    return pbias, torch.where(ar <= slot, 0.0, _NEG).float()
+
+
+def trunk_decode_step_split(params: Params, cfg: GPTConfig, x: torch.Tensor,
+                            cache: SplitCache, slot: int,
+                            keep_p: torch.Tensor, nb: int) -> torch.Tensor:
+    """One beam decode step over a SplitCache whose gen rows are in the
+    order of ``x``. x (BN, C) current-token embeddings; ``slot`` the gen
+    slot this step writes (attention covers gen slots <= slot); keep_p
+    (B, S0) prefix validity, shared by a row's beams. Returns hidden (BN, C)
+    after ln_f. The JAX step returns an updated copy of the cache; this one
+    writes the new K/V slot into ``cache.kg/vg`` in place, which saves a
+    copy of the gen region per layer."""
+    bn = x.shape[0]
+    b = bn // nb
+    h, d = cfg.heads, cfg.head_dim
+    g_len, s0 = cache.kg.shape[3], cache.kp.shape[3]
+    pbias, gbias = _split_biases(keep_p, g_len, slot)
+    scale = 1.0 / math.sqrt(d)
+    for li, blk in enumerate(params["blocks"]):
+        q, k, v = nn.linear(blk["attn"]["qkv"], nn.layer_norm(blk["ln1"], x)
+                            ).chunk(3, dim=-1)
+        q = q.reshape(bn, h, d)
+        cache.kg[li, :, :, slot] = k.reshape(bn, h, d)
+        cache.vg[li, :, :, slot] = v.reshape(bn, h, d)
+        qf = q.float()
+        # prefix scores: one prefix per batch row, shared by its beams
+        lp = torch.matmul(qf.reshape(b, nb, h, d).transpose(1, 2),
+                          cache.kp[li].float().transpose(-1, -2)) * scale
+        lg = torch.matmul(qf[:, :, None, :],
+                          cache.kg[li].float().transpose(-1, -2))[:, :, 0]
+        lg = (lg * scale).reshape(b, nb, h, g_len).transpose(1, 2)
+        logits = torch.cat([lp + pbias, lg + gbias], dim=-1)   # (B,H,nb,S0+G)
+        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        wp, wg = w[..., :s0], w[..., s0:]
+        o = torch.matmul(wp, cache.vp[li].to(x.dtype)).transpose(1, 2)
+        wg = wg.transpose(1, 2).reshape(bn, h, 1, g_len)
+        o = o.reshape(bn, h, d) + torch.matmul(
+            wg, cache.vg[li].to(x.dtype))[:, :, 0]
+        x = x + nn.linear(blk["attn"]["proj"], o.reshape(bn, h * d))
+        x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
+    return nn.layer_norm(params["ln_f"], x)
+
+
+def trunk_decode_step_split_anc(params: Params, cfg: GPTConfig,
+                                x: torch.Tensor, cache: SplitCache, slot: int,
+                                keep_p: torch.Tensor, nb: int,
+                                amap: torch.Tensor) -> torch.Tensor:
+    """One beam decode step over a SplitCache in the ancestry layout, with
+    no physical reorder: ``amap`` (B, nb, G) maps (logical beam, gen slot)
+    to the physical beam of its row whose cache holds that slot's K/V.
+    Scores are computed against every physical beam of the row and the
+    ancestor's is selected; the value product applies the same selection to
+    the probabilities. The current step writes physical beam == logical
+    beam, so the map at ``slot`` is taken as identity here (the decode
+    loop updates the map after selection). Writes the new K/V slot into
+    ``cache.kg/vg`` in place, as ``trunk_decode_step_split`` does. Returns
+    hidden (BN, C) after ln_f."""
+    bn = x.shape[0]
+    b = bn // nb
+    h, d = cfg.heads, cfg.head_dim
+    g_len, s0 = cache.kg.shape[4], cache.kp.shape[3]
+    pbias, gbias = _split_biases(keep_p, g_len, slot)
+    scale = 1.0 / math.sqrt(d)
+    beams = torch.arange(nb, device=x.device, dtype=amap.dtype)
+    at_slot = torch.arange(g_len, device=x.device) == slot
+    amap_eff = torch.where(at_slot, beams[None, :, None], amap)  # (B, nb, G)
+    pick = amap_eff[:, None, :, None, :].expand(b, h, nb, 1, g_len)
+    onehot = (amap_eff[:, :, None, :] == beams[None, None, :, None]
+              ).to(x.dtype)[:, None]                    # (B, 1, nb_log, nb_phys, G)
+    for li, blk in enumerate(params["blocks"]):
+        q, k, v = nn.linear(blk["attn"]["qkv"], nn.layer_norm(blk["ln1"], x)
+                            ).chunk(3, dim=-1)
+        heads_major = lambda t: t.reshape(b, nb, h, d).transpose(1, 2)
+        cache.kg[li, :, :, :, slot] = heads_major(k)
+        cache.vg[li, :, :, :, slot] = heads_major(v)
+        qf = heads_major(q).float()                     # (B, H, nb, D)
+        lp = torch.matmul(qf, cache.kp[li].float().transpose(-1, -2)) * scale
+        kg = cache.kg[li].float().reshape(b, h, nb * g_len, d)
+        s_all = (torch.matmul(qf, kg.transpose(-1, -2)) * scale
+                 ).reshape(b, h, nb, nb, g_len)
+        lg = torch.gather(s_all, 3, pick)[:, :, :, 0]   # the ancestor's score
+        logits = torch.cat([lp + pbias, lg + gbias], dim=-1)   # (B,H,nb,S0+G)
+        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        wp, wg = w[..., :s0], w[..., s0:]
+        wgm = (wg[:, :, :, None, :] * onehot).reshape(b, h, nb, nb * g_len)
+        vg = cache.vg[li].to(x.dtype).reshape(b, h, nb * g_len, d)
+        o = (torch.matmul(wp, cache.vp[li].to(x.dtype))
+             + torch.matmul(wgm, vg))                   # (B, H, nb, D)
+        o = o.transpose(1, 2).reshape(bn, h * d)
+        x = x + nn.linear(blk["attn"]["proj"], o)
+        x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
+    return nn.layer_norm(params["ln_f"], x)
 
 
 def get_conditioning(params: Params, cfg: GPTConfig, mel: torch.Tensor,

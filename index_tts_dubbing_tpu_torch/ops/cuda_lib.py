@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 NVCC_TIMEOUT_S = 300
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: argument types, in order (each returns cudaGetLastError()).
 SIGNATURES = {
     # x, out, a, binv, filt, rows, C, T, dtype, stream
@@ -40,6 +40,11 @@ SIGNATURES = {
     # dtype, stream
     "resblock_cmajor": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P],
+    # k, v, cp, L, BN, H, slab_elems, copy_elems, esize, stream
+    "copy_on_fork": [_P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
+    # k_in, v_in, k_out, v_out, src, L, BN, H, slab_elems, live_elems, esize,
+    # stream
+    "permute_gen_cache": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -37,9 +37,9 @@ def _to_tensor(x, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
-def from_jax_params(tree, device="cpu", dtype: Optional[torch.dtype] = None):
-    """JAX parameter tree → the port's tree of tensors (floating leaves cast
-    to ``dtype`` when given)."""
+def from_jax_params(tree, device, dtype: Optional[torch.dtype] = None):
+    """JAX parameter tree → the port's tree of tensors on ``device``
+    (floating leaves cast to ``dtype`` when given)."""
     if isinstance(tree, dict):
         out = {}
         for key, val in tree.items():

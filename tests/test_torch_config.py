@@ -89,7 +89,7 @@ def test_init_tree_matches_jax_init_and_bridge():
     k1, k2 = jax.random.split(jax.random.PRNGKey(0))
     jparams = {"gpt": jgpt.init(k1, jgpt.GPTConfig(**gcfg)),
                "bigvgan": jbigvgan.init(k2, jbigvgan.BigVGANConfig(**bcfg))}
-    bridged = weights.from_jax_params(jparams)
+    bridged = weights.from_jax_params(jparams, device="cpu")
     cfg = pconfig.EngineConfig(gpt=pconfig.GPTConfig(**gcfg),
                                bigvgan=pconfig.BigVGANConfig(**bcfg))
     own = weights.init(cfg, torch.Generator().manual_seed(0), "cpu")

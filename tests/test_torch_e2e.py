@@ -1,11 +1,13 @@
-"""infer_fast(num_beams=1, do_sample=False) end to end: the port against the
-JAX engine with the same weights, the same prompt and the same text, at the
-small config of tests/test_engine.py with max_mel_tokens raised to 260 so
-that both engines take the fused+stream route (the slice; decode caps
-<= 256 go to the one-program route instead)."""
+"""infer_fast end to end with do_sample=False, greedy (num_beams=1) and beam
+search (the default num_beams=3): the port against the JAX engine with the
+same weights, the same prompt and the same text, at the small config of
+tests/test_engine.py with max_mel_tokens raised to 260 so that both engines
+take the fused+stream route (decode caps <= 256 go to the one-program route
+instead)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from index_tts_dubbing_tpu.engine import decode as jdecode
 from index_tts_dubbing_tpu.engine.tts import IndexTTS as JaxTTS
@@ -15,6 +17,7 @@ from index_tts_dubbing_tpu.utils import audio as jaudio
 from index_tts_dubbing_tpu.utils import config as jconfig
 from index_tts_dubbing_tpu_torch import config as pconfig
 from index_tts_dubbing_tpu_torch import weights
+from index_tts_dubbing_tpu_torch.engine import decode as pdecode
 from index_tts_dubbing_tpu_torch.engine.tts import IndexTTS as PortTTS
 
 GPT_SMALL = dict(model_dim=64, layers=2, heads=4, max_mel_tokens=260,
@@ -26,6 +29,46 @@ BV_SMALL = dict(gpt_dim=64, upsample_initial_channel=128)
 # batch bucket 4 with one dead row
 TEXT = "Hello there friend. The quick brown fox jumps. Over the lazy dog!"
 KW = dict(num_beams=1, do_sample=False, max_text_tokens_per_sentence=20)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch's CPU thread pool and XLA's contend in one process; one torch
+    thread runs these small decodes many times faster."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def engines(tmp_path_factory):
+    """The JAX engine, the port on its weights, and a random prompt."""
+    jcfg = jconfig.EngineConfig(gpt=jgpt.GPTConfig(**GPT_SMALL),
+                                bigvgan=jbigvgan.BigVGANConfig(**BV_SMALL))
+    jeng = JaxTTS(config=jcfg, verbose_init=False, seed=0)
+    pcfg = pconfig.EngineConfig(gpt=pconfig.GPTConfig(**GPT_SMALL),
+                                bigvgan=pconfig.BigVGANConfig(**BV_SMALL))
+    peng = PortTTS(config=pcfg, device="cpu", verbose_init=False,
+                   params=weights.from_jax_params(jeng.params, device="cpu"))
+    rng = np.random.default_rng(1)
+    prompt = tmp_path_factory.mktemp("e2e") / "prompt.wav"
+    jaudio.write_wav(prompt, (rng.standard_normal(24000) * 0.1
+                              ).astype(np.float32), 24000)
+    return jeng, peng, str(prompt)
+
+
+def _assert_same_audio(jeng, peng, jout, pout):
+    (jsr, jwav), (psr, pwav) = jout, pout
+    np.testing.assert_array_equal(np.asarray(jeng.last_fused_res.lens),
+                                  peng.last_fused_res.lens.numpy())
+    assert jsr == psr == 24000
+    assert pwav.dtype == jwav.dtype == np.int16
+    assert pwav.shape == jwav.shape
+    # float32 waveforms agree to ~1e-5 (tests/test_torch_modules.py); the
+    # int16 cast of clip(wav·32767) then differs by at most 2 LSB
+    diff = np.abs(pwav.astype(np.int32) - jwav.astype(np.int32))
+    assert diff.max() <= 2, diff.max()
 
 
 def _jax_top2_gap(jeng, prompt, step_codes, row, step):
@@ -62,21 +105,10 @@ def _jax_top2_gap(jeng, prompt, step_codes, row, step):
     return float(top2[1] - top2[0])
 
 
-def test_infer_fast_greedy_matches_jax(tmp_path):
-    jcfg = jconfig.EngineConfig(gpt=jgpt.GPTConfig(**GPT_SMALL),
-                                bigvgan=jbigvgan.BigVGANConfig(**BV_SMALL))
-    jeng = JaxTTS(config=jcfg, verbose_init=False, seed=0)
-    pcfg = pconfig.EngineConfig(gpt=pconfig.GPTConfig(**GPT_SMALL),
-                                bigvgan=pconfig.BigVGANConfig(**BV_SMALL))
-    peng = PortTTS(config=pcfg, device="cpu", verbose_init=False,
-                   params=weights.from_jax_params(jeng.params))
-    rng = np.random.default_rng(1)
-    prompt = tmp_path / "prompt.wav"
-    jaudio.write_wav(prompt, (rng.standard_normal(24000) * 0.1
-                              ).astype(np.float32), 24000)
-
-    jsr, jwav = jeng.infer_fast(str(prompt), TEXT, **dict(KW))
-    psr, pwav = peng.infer_fast(str(prompt), TEXT, **dict(KW))
+def test_infer_fast_greedy_matches_jax(engines):
+    jeng, peng, prompt = engines
+    jout = jeng.infer_fast(prompt, TEXT, **dict(KW))
+    pout = peng.infer_fast(prompt, TEXT, **dict(KW))
     assert jeng.last_fused_flavor == peng.last_fused_flavor == "fused+stream"
     jcodes = np.asarray(jeng.last_fused_res.codes)
     pcodes = peng.last_fused_res.codes.numpy()
@@ -84,30 +116,41 @@ def test_infer_fast_greedy_matches_jax(tmp_path):
     mismatch = np.argwhere(jcodes != pcodes)
     if mismatch.size:
         row, step = map(int, mismatch[np.argmin(mismatch[:, 1])])
-        gap = _jax_top2_gap(jeng, str(prompt), jcodes, row, step)
+        gap = _jax_top2_gap(jeng, prompt, jcodes, row, step)
         # a float32 near-tie is the only admissible reason to diverge
         assert gap < 1e-4, (row, step, gap)
         return
-    np.testing.assert_array_equal(np.asarray(jeng.last_fused_res.lens),
-                                  peng.last_fused_res.lens.numpy())
-    assert jsr == psr == 24000
-    assert pwav.dtype == jwav.dtype == np.int16
-    assert pwav.shape == jwav.shape
-    # float32 waveforms agree to ~1e-5 (tests/test_torch_modules.py); the
-    # int16 cast of clip(wav·32767) then differs by at most 2 LSB
-    diff = np.abs(pwav.astype(np.int32) - jwav.astype(np.int32))
-    assert diff.max() <= 2, diff.max()
+    _assert_same_audio(jeng, peng, jout, pout)
+
+
+def test_infer_fast_beam_search_matches_jax(engines):
+    """The default num_beams=3 with do_sample=False (beam search, the
+    port's default "anc" history): codes token-exact, audio within 2 LSB."""
+    jeng, peng, prompt = engines
+    kw = dict(do_sample=False, max_text_tokens_per_sentence=20)
+    jout = jeng.infer_fast(prompt, TEXT, **dict(kw))
+    pout = peng.infer_fast(prompt, TEXT, **dict(kw))
+    assert jeng.last_fused_flavor == peng.last_fused_flavor == "fused+stream"
+    assert peng.last_times.decode.startswith("beam search (num_beams=3")
+    jcodes = np.asarray(jeng.last_fused_res.codes)
+    pcodes = peng.last_fused_res.codes.numpy()
+    assert pcodes.shape == (4, 260)
+    np.testing.assert_array_equal(pcodes, jcodes)
+    _assert_same_audio(jeng, peng, jout, pout)
 
 
 def test_requests_outside_the_slice_raise():
-    """Beam decode, the one-program flavour (decode cap <= 256), the other
-    entry points and the off-slice constructor options name their later
-    slice instead of running."""
+    """The one-program flavour (decode cap <= 256), the other entry points,
+    the off-slice constructor options and the unported beam history
+    strategies name their later slice instead of running."""
     pcfg = pconfig.EngineConfig(gpt=pconfig.GPTConfig(**GPT_SMALL),
                                 bigvgan=pconfig.BigVGANConfig(**BV_SMALL))
     eng = PortTTS(config=pcfg, device="cpu", verbose_init=False)
-    with pytest.raises(NotImplementedError, match="beam decode"):
-        eng.infer_fast("unused.wav", TEXT)                   # num_beams=3
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pdecode._beam_decode(eng.params["gpt"], pcfg.gpt,
+                             pdecode.SamplingConfig(), torch.zeros(1, 3, 64),
+                             torch.ones(1, 3, dtype=torch.bool), None, 3, 0.0,
+                             stochastic=False, reorder="split")
     with pytest.raises(NotImplementedError, match="one-program"):
         eng.infer_fast("unused.wav", TEXT, num_beams=1, max_mel_tokens=200)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -43,7 +43,7 @@ def models():
     return {"jcfg": jg_cfg, "jbcfg": jb_cfg, "jp": jp,
             "cfg": pconfig.GPTConfig(**GPT_SMALL),
             "bcfg": pconfig.BigVGANConfig(**BV_SMALL),
-            "p": weights.from_jax_params(jp)}
+            "p": weights.from_jax_params(jp, device="cpu")}
 
 
 def t(x):
@@ -97,7 +97,7 @@ def test_prefill_and_decode_steps_match_jax(models, rng):
     jcache = jgpt.init_cache(jcfg, b, s0 + steps)
     jh, jcache = jgpt.trunk_prefill(models["jp"]["gpt"], jcfg, jemb, jkeep,
                                     jcache)
-    cache = pgpt.init_cache(cfg, b, s0 + steps)
+    cache = pgpt.init_cache(cfg, b, s0 + steps, torch.float32, "cpu")
     h = pgpt.trunk_prefill(models["p"]["gpt"], cfg, emb, keep, cache)
     # float32 trunk of 2 layers, layer-normed output: < 1e-5 observed
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=1e-4)
