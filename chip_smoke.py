@@ -10,9 +10,11 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
 1. device  - a CUDA device must exist; prints nvidia-smi's name and power limit.
 2. build   - compiles the kernels (csrc/*.cu, one nvcc call) into
              index_tts_dubbing_tpu_torch/_build/.
-3. kernels - holds K1 (snake_cmajor) and K2 (resblock_cmajor) against their
-             plain PyTorch versions over whole tensors at the vocoder's
-             main-path shapes, in float32 and bfloat16; holds copy_on_fork
+3. kernels - holds K1 (snake_cmajor), K2 (resblock_cmajor) and B3
+             (snake_clast, channels-last) against their plain PyTorch
+             versions over whole tensors at the vocoder's shapes (C-major
+             route for K1/K2, reference-structured route for B3), in float32
+             and bfloat16; holds copy_on_fork
              and the gen-cache gather (all four of its wrappers) equal to
              their plain versions at the full-width gen cache
              (20, 12, 16, 600, 64), in bfloat16 and float32, over several
@@ -31,6 +33,17 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
                          per step, beside "anc" on the same prefix and noise.
              Checks each output's length, finiteness and launches; then holds
              the windowed vocoder on the kernels against the exact route.
+             vocoder-ref - WindowedVocoder(layout="ref") with use_pallas on
+                         the engine's bf16 weights vocodes the multi
+                         request's first row (600 frames, 6 windows in
+                         batches of 4 + 2) through stream_device, which must
+                         launch B3 109 times per window batch and K1/K2
+                         never; __call__ on the host copy must agree, and the
+                         exact route (use_pallas off) within VOCODER_TOL at
+                         least 16 frames from the ends and within EDGE_TOL
+                         everywhere; models/bigvgan.forward runs once on 144
+                         frames; IndexTTS(use_pallas=True) is built on the
+                         same weights.
 
 Then one JSON line describing the kernels and, last, the device line.
 Float32 convs and products run without TF32 throughout (set below), so the
@@ -43,6 +56,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -52,9 +66,11 @@ from index_tts_dubbing_tpu_torch.config import EngineConfig
 from index_tts_dubbing_tpu_torch.engine import decode as decode_mod
 from index_tts_dubbing_tpu_torch.engine import vocoder as voc_mod
 from index_tts_dubbing_tpu_torch.engine.tts import IndexTTS
+from index_tts_dubbing_tpu_torch.models import bigvgan as bigvgan_mod
 from index_tts_dubbing_tpu_torch.ops import cuda_lib
 from index_tts_dubbing_tpu_torch.ops import permute
 from index_tts_dubbing_tpu_torch.ops import resblock_cmajor as k2
+from index_tts_dubbing_tpu_torch.ops import snake_clast as b3
 from index_tts_dubbing_tpu_torch.ops import snake_cmajor as k1
 from index_tts_dubbing_tpu_torch.utils.audio import write_wav
 
@@ -69,6 +85,11 @@ K1_SHAPES = [(768, 576, 18), (384, 2304, 18), (192, 9216, 18), (24, 147456, 1)]
 K2_SHAPES = [(c, t, k) for c, t in ((96, 36864), (48, 73728), (24, 147456))
              for k in (3, 7, 11)]
 DILS = (1, 3, 5)
+# B3 per window batch of the reference-structured route: every activation
+# of every stage (18 = 3 resblocks x 6), plus act_post at C = 24: 109
+B3_SHAPES = [(768, 576, 18), (384, 2304, 18), (192, 9216, 18),
+             (96, 36864, 18), (48, 73728, 18), (24, 147456, 19)]
+B3_PER_BATCH = sum(n for _, _, n in B3_SHAPES)
 # |kernel - plain| <= TOL * max(1, max|plain|): float32 differs only in the
 # summation order of up to six chained k·C-term convs; bfloat16 outputs (and
 # conv inputs rounded to bfloat16) may land one or two ulps (2^-8 relative)
@@ -92,6 +113,13 @@ GATHER_HEADLINE = ("reversal", None)
 # windowed vocoder on the kernels vs the exact route, float wav in [-1, 1]:
 # float32 summation order over ~40 chained full-width convs
 VOCODER_TOL = 1e-3
+# B3 (as its Pallas original) recomputes its up-phases over the replicated
+# input within ±3 frames of a true boundary, where the exact route
+# zero-pads: tests/test_pallas_snake.py holds the Pallas kernel's edges to
+# 0.2 of the exact route, and the ref route applies no edge patches, so the
+# whole stream is held to the same bound (the interior to VOCODER_TOL)
+EDGE_TOL = 0.2
+EDGE_FRAMES = 16
 TEXTS = [
     "The quick brown fox jumps over the lazy dog near the river bank.",
     "Hello there, this is the first slice of the port speaking on the card.",
@@ -146,7 +174,7 @@ def check_kernels(gen: torch.Generator):
     per-kernel timings (float32, one window batch) and errors."""
     dev = "cuda"
     rand = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    out = {"snake_cmajor": [], "resblock_cmajor": []}
+    out = {"snake_cmajor": [], "resblock_cmajor": [], "snake_clast": []}
     for dt in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dt).element_size()
         for c, t, per_batch in K1_SHAPES:
@@ -169,6 +197,26 @@ def check_kernels(gen: torch.Generator):
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     2 * n * es + 8 * c, n * ACT_OPS)
             out["snake_cmajor"].append(row)
+        for c, t, per_batch in B3_SHAPES:
+            x = rand(WINDOW_BATCH, t, c).to(dt)
+            al, be = rand(c) * 0.3, rand(c) * 0.3
+            ref = b3.snake_clast_plain(x, al, be, True).float()
+            got = b3.snake_clast(x, al, be, True).float()
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            lim = TOL[dt] * max(1.0, ref.abs().max().item())
+            if not err <= lim:
+                raise AssertionError(f"B3 {dt} C={c} T={t}: err {err} > {lim}")
+            row = {"dtype": str(dt), "C": c, "T": t, "per_batch": per_batch,
+                   "max_abs_err": err, "tol": lim}
+            if dt == torch.float32:
+                row["ms"] = cuda_ms(lambda: b3.snake_clast(x, al, be, True), 10)
+                row["plain_ms"] = cuda_ms(
+                    lambda: b3.snake_clast_plain(x, al, be, True), 3)
+                n = WINDOW_BATCH * c * t
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    2 * n * es + 8 * c, n * ACT_OPS)
+            out["snake_clast"].append(row)
         for c, t, k in K2_SHAPES:
             conv = lambda: {"w": rand(k, c, c) * 0.1, "b": rand(c) * 0.1}
             rb = {"convs1": [conv() for _ in range(3)],
@@ -332,6 +380,7 @@ def summarize_permute(rows, headline, launches, name, source, replaces,
 
 
 COUNTED = {"snake_cmajor": k1.snake_cmajor, "resblock_cmajor": k2.resblock_cmajor,
+           "snake_clast": b3.snake_clast,
            "copy_on_fork": permute.copy_on_fork,
            **{fn.__name__: fn for fn in permute.GATHERS}}
 
@@ -461,6 +510,72 @@ def check_vocoder(tts: IndexTTS) -> float:
     return err
 
 
+def run_vocoder_ref(tts: IndexTTS) -> dict:
+    """The reference-structured windowed vocoder with B3 on the multi
+    request's first row, through stream_device (counted from zero) and
+    __call__; the exact route beside it; bigvgan.forward on 144 frames; an
+    engine with use_pallas on the same weights."""
+    res = tts.last_fused_res
+    frames = int(res.lens[0])
+    lat = res.lat[:1, :frames]
+    spk = tts.vocoder.speaker_embedding(tts.cache_cond_mel.transpose(1, 2))
+    bcfg = replace(tts.bigvgan_cfg, use_pallas=True)
+    voc = voc_mod.WindowedVocoder(tts.params["bigvgan"], bcfg, layout="ref",
+                                  compute_dtype=tts.dtype)
+    batches = len(list(voc._plan_batches(voc._window_list(frames))))
+    up = voc.upsample
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    wav = voc.stream_device(lat, np.array([frames]), spk=spk)
+    stream_s = time.perf_counter() - t0
+    counts = read_counts()
+    want = {name: 0 for name in COUNTED}
+    want["snake_clast"] = B3_PER_BATCH * batches
+    if counts != want:
+        raise AssertionError(f"vocoder-ref launches {counts}, want {want}")
+    if wav.shape != (frames * up,) or not np.isfinite(wav).all():
+        raise AssertionError(f"vocoder-ref wav {wav.shape}, finite "
+                             f"{np.isfinite(wav).all()}")
+    host = voc(lat[0].float().cpu().numpy(), spk=spk)
+    host_err = float(np.abs(host - wav).max())
+    if not host_err <= 1e-6:
+        raise AssertionError(f"__call__ vs stream_device: {host_err}")
+    exact = voc_mod.WindowedVocoder(
+        tts.params["bigvgan"], tts.bigvgan_cfg, layout="ref",
+        compute_dtype=tts.dtype).stream_device(lat, np.array([frames]),
+                                               spk=spk)
+    diff = np.abs(wav - exact)
+    inner = float(diff[EDGE_FRAMES * up: (frames - EDGE_FRAMES) * up].max())
+    whole = float(diff.max())
+    if not (inner <= VOCODER_TOL and whole <= EDGE_TOL):
+        raise AssertionError(f"vocoder-ref vs exact: interior {inner} > "
+                             f"{VOCODER_TOL} or whole {whole} > {EDGE_TOL}")
+    n_fwd = 144
+    before = b3.snake_clast.launches
+    fwd = bigvgan_mod.forward(tts.params["bigvgan"], bcfg,
+                              lat[:, :n_fwd].to(tts.dtype),
+                              tts.cache_cond_mel.transpose(1, 2))
+    win = voc_mod._vocode_window(tts.params["bigvgan"], bcfg,
+                                 lat[:, :n_fwd].to(tts.dtype), spk)
+    fwd_err = (fwd.float() - win.float()).abs().max().item()
+    if fwd.shape != (1, n_fwd * up) or not torch.isfinite(fwd).all() \
+            or not fwd_err <= 1e-6:
+        raise AssertionError(f"bigvgan.forward {tuple(fwd.shape)}, vs the "
+                             f"window function {fwd_err}")
+    if b3.snake_clast.launches - before != 2 * B3_PER_BATCH:
+        raise AssertionError("bigvgan.forward did not run on B3")
+    flagged = IndexTTS(config=tts.cfg, device=tts.device, is_fp16=True,
+                       params=tts.params, use_pallas=True, verbose_init=False)
+    if not (flagged.bigvgan_cfg.use_pallas and flagged.vocoder.layout == "cmajor"):
+        raise AssertionError("IndexTTS(use_pallas=True) configuration")
+    return {"frames": frames, "windows": len(voc._window_list(frames)),
+            "window_batches": batches, "stream_s": stream_s,
+            "launches": {k: v for k, v in counts.items() if v},
+            "host_vs_stream": host_err, "vs_exact_interior": inner,
+            "vs_exact_whole": whole, "forward_vs_window": fwd_err}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     argparse.ArgumentParser(description=__doc__,
@@ -538,6 +653,11 @@ def main() -> int:
         t1 = time.perf_counter()
         verr = check_vocoder(tts)
         phase("main/vocoder-vs-exact", t1, f"max_abs_err {verr:.3g}")
+
+        t1 = time.perf_counter()
+        ref_report = run_vocoder_ref(tts)
+        paths["vocoder-ref"] = ref_report["launches"]
+        phase("main/vocoder-ref", t1, json.dumps(ref_report))
     phase("main", t0)
 
     by_path = lambda name: {p: c.get(name, 0) for p, c in paths.items()}
@@ -553,6 +673,10 @@ def main() -> int:
                   "resblock_cmajor",
                   "index_tts_dubbing_tpu_torch/csrc/resblock_cmajor.cu",
                   "index_tts_dubbing_tpu/ops/pallas_resblock.py:175"),
+        summarize(checks["snake_clast"], paths["vocoder-ref"]["snake_clast"],
+                  "snake_clast",
+                  "index_tts_dubbing_tpu_torch/csrc/snake_clast.cu",
+                  "index_tts_dubbing_tpu/ops/pallas_snake.py:221"),
         summarize_permute(perms["copy_on_fork"], COF_HEADLINE,
                           paths["beam-cof"]["copy_on_fork"], "copy_on_fork",
                           "index_tts_dubbing_tpu_torch/csrc/permute.cu",
@@ -567,12 +691,14 @@ def main() -> int:
                                         "kernel phase launches it"),
     ]
     for k, name in zip(kernels, ("snake_cmajor", "resblock_cmajor",
-                                 "copy_on_fork")):
+                                 "snake_clast", "copy_on_fork")):
         k["launches_by_path"] = by_path(name)
     kernels[0]["launches_note"] = kernels[1]["launches_note"] = (
         "launches: the default beam path (three requests)")
-    kernels[2]["launches_note"] = "launches: the beam-cof decode"
-    kernels[3]["launches_by_path"] = gathers
+    kernels[2]["launches_note"] = ("launches: the vocoder-ref stream "
+                                   "(stream_device, 600 frames)")
+    kernels[3]["launches_note"] = "launches: the beam-cof decode"
+    kernels[4]["launches_by_path"] = gathers
     print(json.dumps({"kernels": kernels}))
     phase("total", t_all)
     faulthandler.cancel_dump_traceback_later()

@@ -12,7 +12,7 @@ ROADMAP item that brings them.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -139,7 +139,20 @@ def _later(what: str, item: str) -> NotImplementedError:
 
 class IndexTTS:
     """The engine, with the reference's public constructor and
-    ``infer_fast``. Runs on ``device`` ("cuda" unless the caller says)."""
+    ``infer_fast``. Runs on ``device`` ("cuda" unless the caller says).
+
+    ``params``: the port's tree of tensors, or the JAX package's tree as its
+    ``init`` or ``load_params`` gives it (numpy or ``ml_dtypes`` leaves, the
+    GPT trunk stacked or not); either is moved to ``device`` and cast to the
+    engine's dtype.
+
+    ``use_pallas`` sets ``BigVGANConfig.use_pallas``, as the JAX engine does:
+    the channels-last BigVGAN (models/bigvgan.py) and every
+    ``WindowedVocoder(layout="ref")`` built on ``bigvgan_cfg`` then run their
+    activations on kernel B3. It does not change ``infer_fast``: the engine's
+    own vocoder is the C-major one on kernels K1 and K2, whatever the flag,
+    exactly as the JAX engine's on its accelerator.
+    """
 
     TEXT_BUCKETS = (16, 32, 48, 64, 80, 96, 120)
     FUSED_BATCH_BUCKETS = (1, 2, 4, 8, 16, 24, 32)
@@ -156,9 +169,6 @@ class IndexTTS:
                  verbose_init: bool = True,
                  quantize: Optional[str] = None,
                  mesh=None, vocoder_window: Optional[int] = None):
-        if use_pallas:
-            raise _later("the channels-last snake kernel (use_pallas)",
-                         "queue B, item 3")
         if quantize is not None:
             raise _later("int8 weight quantisation", "queue A, item 14")
         if mesh is not None:
@@ -166,6 +176,9 @@ class IndexTTS:
         self.device = torch.device(device if device is not None else "cuda")
         self.cfg = (config if config is not None
                     else load_config(cfg_path) if cfg_path else EngineConfig())
+        if use_pallas:
+            self.cfg = replace(self.cfg, bigvgan=replace(self.cfg.bigvgan,
+                                                         use_pallas=True))
         self.gpt_cfg = self.cfg.gpt
         self.bigvgan_cfg = self.cfg.bigvgan
         self.dtype = torch.bfloat16 if is_fp16 else torch.float32
@@ -180,9 +193,7 @@ class IndexTTS:
                 raise _later("checkpoint loading", "queue A, item 14")
             gen = torch.Generator(self.device).manual_seed(seed)
             params = weights.init(self.cfg, gen, self.device)
-        self.params = weights.cast_floating(
-            {k: _to_device(v, self.device) for k, v in params.items()},
-            self.dtype)
+        self.params = weights.from_jax_params(params, self.device, self.dtype)
         self.normalizer = TextNormalizer()
         self.normalizer.load()
         self.tokenizer = self._load_tokenizer()
@@ -369,10 +380,3 @@ class IndexTTS:
             return output_path
         return sr, wav_i16[None, :].T
 
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)

@@ -1,18 +1,26 @@
-"""Windowed streaming vocoder in the C-major layout, on the two kernels.
+"""Windowed streaming vocoder: the C-major layout on kernels K1 and K2, or
+the reference-structured channels-last layout.
 
-Counterpart of the JAX package's ``engine/vocoder.py`` (its cmajor route as
-the engine runs it on its chip, ``vocoder.py:376-400``): the latent stream
+Counterpart of the JAX package's ``engine/vocoder.py``. The latent stream
 is cut into windows of 112 frames with 16-frame halos, each window batch
-runs BigVGAN as (B, C, T) with kernel K1 (ops/snake_cmajor.py) for every
-anti-aliased activation of the C > 128 stages and ``act_post``, and kernel
-K2 (ops/resblock_cmajor.py) for every whole resblock of the C ≤ 128 stages;
-the halo-cropped outputs are stitched.
+runs BigVGAN, and the halo-cropped outputs are stitched. Two layouts:
 
-The kernels replicate-pad where the reference zero-pads each conv, which is
-exact wherever a true stream boundary is ≥ halo away. So the first and last
-``halo`` frames of the stream are re-vocoded by the exact route (plain
-torch, zero-pad convs, ``use_kernels=False``) on two patches of 2·halo
-frames and written over the fast output (``_apply_edge_patches``).
+- ``"cmajor"`` (the default, and the engine's vocoder, as the JAX package's
+  on its own accelerator, ``vocoder.py:376-400``): each window batch runs
+  as (B, C, T) with kernel K1 (ops/snake_cmajor.py) for every anti-aliased
+  activation of the C > 128 stages and ``act_post``, and kernel K2
+  (ops/resblock_cmajor.py) for every whole resblock of the C ≤ 128 stages.
+  The kernels replicate-pad where the reference zero-pads each conv, which
+  is exact wherever a true stream boundary is ≥ halo away. So the first and
+  last ``halo`` frames of the stream are re-vocoded by the exact route
+  (plain torch, zero-pad convs, ``use_kernels=False``) on two patches of
+  2·halo frames and written over the fast output
+  (``_apply_edge_patches``).
+- ``"ref"``: each window batch runs the reference-structured channels-last
+  BigVGAN (models/bigvgan.py, ``_vocode_window``), whose activations take
+  kernel B3 (ops/snake_clast.py) when ``cfg.use_pallas`` is set. As in the
+  JAX package, no edge patches are applied, so with B3 the outputs within
+  its edge span of the true stream ends are B3's.
 
 The vocoder's dtype: windows enter in the parameters' dtype; adding the
 float32 speaker conditioning promotes the rest to float32, exactly as the
@@ -27,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from index_tts_dubbing_tpu_torch.config import BigVGANConfig
-from index_tts_dubbing_tpu_torch.models import ecapa
+from index_tts_dubbing_tpu_torch.models import bigvgan, ecapa
 from index_tts_dubbing_tpu_torch.ops.alias_free import (
     anti_aliased_activation_cmajor)
 from index_tts_dubbing_tpu_torch.ops.resblock_cmajor import (pack_resblock,
@@ -125,20 +133,40 @@ def _vocode_window_cmajor(params: Dict[str, Any], cfg: BigVGANConfig,
     return torch.tanh(x)[:, 0, :]
 
 
+def _vocode_window(params: Dict[str, Any], cfg: BigVGANConfig,
+                   latent: torch.Tensor, spk: torch.Tensor) -> torch.Tensor:
+    """Windows (B, W, gpt_dim) + speaker embedding ((1|B), 1, spk_dim) →
+    wav (B, W·1024) through the reference-structured channels-last stages;
+    kernel B3 for every activation when ``cfg.use_pallas``."""
+    if spk.shape[0] == 1 and latent.shape[0] > 1:
+        spk = spk.expand((latent.shape[0],) + spk.shape[1:])
+    return bigvgan.generate(params, cfg, latent, spk)
+
+
 def speaker_embedding(params: Dict[str, Any], mel_ref: torch.Tensor) -> torch.Tensor:
     """mel_ref (B, T, n_mels) → (B, 1, spk_dim)."""
     return ecapa.forward(params["speaker_encoder"], mel_ref)
 
 
+LAYOUTS = ("cmajor", "ref")
+
+
 class WindowedVocoder:
     """Vocode latent streams of any length through fixed-size windows in
-    batches of power-of-two sizes (largest ≤ ``max_batch`` first)."""
+    batches of power-of-two sizes (largest ≤ ``max_batch`` first).
+    ``layout``: "cmajor" (None means it, on every device) or "ref"."""
 
     def __init__(self, params: Dict[str, Any], cfg: BigVGANConfig,
                  window: int = 112, halo: int = DEFAULT_HALO,
-                 max_batch: int = 32, compute_dtype=torch.float32):
+                 max_batch: int = 32, compute_dtype=torch.float32,
+                 layout: Optional[str] = None):
+        layout = layout or "cmajor"
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout {layout!r} is not one of {LAYOUTS}")
+        self.layout = layout
         self.params = params
         self.cfg = cfg
+        self.device = params["conv_pre"]["w"].device
         self.window = window
         self.halo = halo
         self.max_batch = max_batch
@@ -151,6 +179,8 @@ class WindowedVocoder:
 
     def _vocode(self, windows: torch.Tensor, spk: torch.Tensor,
                 exact: bool) -> torch.Tensor:
+        if self.layout == "ref":
+            return _vocode_window(self.params, self.cfg, windows, spk)
         if exact:
             return _vocode_window_cmajor(self.params, self.cfg, windows, spk,
                                         use_kernels=False)
@@ -205,14 +235,28 @@ class WindowedVocoder:
         out[: self.halo * up] = ewav[0, : self.halo * up]
         out[(t - self.halo) * up: t * up] = ewav[1, self.halo * up:]
 
+    def __call__(self, latent, mel_ref=None,
+                 spk: Optional[torch.Tensor] = None) -> np.ndarray:
+        """Vocode one host stream: latent (T, C) or (1, T, C) → float32 wav
+        (T·1024,). It goes to the parameters' device as float32 and takes
+        ``stream_device``'s windows, so the two give the same wav."""
+        latent = np.asarray(latent, np.float32)
+        if latent.ndim == 3:
+            latent = latent[0]
+        if spk is None:
+            spk = self.speaker_embedding(
+                torch.as_tensor(mel_ref, device=self.device))
+        lat = torch.from_numpy(latent).to(self.device)[None]
+        return self.stream_device(lat, [latent.shape[0]], spk=spk)
+
     def stream_device(self, lat: torch.Tensor, lens, order=None,
                       spk: Optional[torch.Tensor] = None,
                       mel_ref: Optional[torch.Tensor] = None) -> np.ndarray:
         """Vocode the stream concat(lat[order[s], :lens[order[s]]]) that lives
         on the device: lat (rows, MB, C), lens (rows,) host ints. Windows are
         gathered on the device; the stitched float32 wav comes back to the
-        host once. A stream no longer than one window runs the exact route
-        at its own length."""
+        host once. A stream no longer than one window runs at its own length
+        (on "cmajor" by the exact route)."""
         lens = np.asarray(lens, np.int64)
         order = (np.arange(lens.size) if order is None
                  else np.asarray(order, np.int64))
@@ -240,6 +284,7 @@ class WindowedVocoder:
             idx = torch.stack([flatmap[lo: lo + full] for (_, _, lo) in chunk])
             wavs = self._vocode(flat[idx], spk, exact=False).float()
             self._collect(out, chunk, wavs)
-        self._apply_edge_patches(out, t,
-                                 lambda lo, pw: flat[flatmap[lo: lo + pw]], spk)
+        if self.layout == "cmajor":
+            self._apply_edge_patches(
+                out, t, lambda lo, pw: flat[flatmap[lo: lo + pw]], spk)
         return out.cpu().numpy()

@@ -11,6 +11,11 @@ over dim 1.
 zero-pad-conv route the vocoder's edge patches take, on the card too.
 With ``use_kernel=True`` it runs kernel K1 (ops/snake_cmajor.py), whose
 edge semantics differ within ±3 frames of the true sequence boundary.
+
+``anti_aliased_activation`` is the channels-last ``(B, T, C)`` form the
+reference-structured BigVGAN (models/bigvgan.py) uses: the same ops on a
+transposed view, or with ``use_pallas=True`` kernel B3
+(ops/snake_clast.py), with B3's edge semantics.
 """
 from __future__ import annotations
 
@@ -94,6 +99,11 @@ def downsample2(x: torch.Tensor, filt: np.ndarray = DOWN_FILTER) -> torch.Tensor
     return y
 
 
+def snake(x: torch.Tensor, alpha: torch.Tensor, logscale: bool) -> torch.Tensor:
+    """x + (1/α)·sin²(αx) with per-channel α on dim 1."""
+    return snake_beta(x, alpha, None, logscale)
+
+
 def snake_beta(x: torch.Tensor, alpha: torch.Tensor,
                beta: Optional[torch.Tensor], logscale: bool) -> torch.Tensor:
     """x + (1/β)·sin²(αx) with per-channel α, β on dim 1 (β = α when None,
@@ -116,3 +126,17 @@ def anti_aliased_activation_cmajor(x: torch.Tensor, alpha: torch.Tensor,
         from index_tts_dubbing_tpu_torch.ops.snake_cmajor import snake_cmajor
         return snake_cmajor(x, alpha, beta, logscale)
     return downsample2(snake_beta(upsample2(x), alpha, beta, logscale))
+
+
+def anti_aliased_activation(x: torch.Tensor, alpha: torch.Tensor,
+                            beta: Optional[torch.Tensor], logscale: bool,
+                            use_pallas: bool = False) -> torch.Tensor:
+    """(B, T, C) → (B, T, C): up → snake (β absent) or snake_beta → down
+    along time. ``use_pallas`` runs kernel B3, the JAX flag's name kept."""
+    if use_pallas:
+        from index_tts_dubbing_tpu_torch.ops.snake_clast import snake_clast
+        return snake_clast(x, alpha, beta, logscale)
+    y = upsample2(x.transpose(1, 2))
+    y = (snake(y, alpha, logscale) if beta is None
+         else snake_beta(y, alpha, beta, logscale))
+    return downsample2(y).transpose(1, 2)

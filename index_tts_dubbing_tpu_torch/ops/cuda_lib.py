@@ -36,6 +36,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     # x, out, a, binv, filt, rows, C, T, dtype, stream
     "snake_cmajor": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, out, a, binv, filt, B, T, C, dtype, stream
+    "snake_clast": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, out, w1, b1, w2, b2, acts, filt, B, C, T, k, d0, d1, d2, tt, cpad,
     # dtype, stream
     "resblock_cmajor": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -2,9 +2,11 @@
 port's own random initialisation.
 
 ``from_jax_params`` carries a JAX parameter tree (nested dicts and lists of
-numpy or JAX arrays) across as the same tree of tensors. The GPT trunk's
-stacked ``blocks`` (one dict whose leaves lead with a layers axis) become a
-list of per-layer dicts, which is the port's layout.
+numpy, ``ml_dtypes`` or JAX arrays) across as the same tree of tensors. The
+GPT trunk's stacked ``blocks`` (one dict whose leaves lead with a layers
+axis) become a list of per-layer dicts, which is the port's layout. Tensor
+leaves pass through, moved and cast, so the port's own tree takes the same
+call.
 
 ``init`` builds full-width random weights without JAX, with the JAX
 package's tree, shapes and distributions (torch's default inits: uniform
@@ -27,19 +29,22 @@ Params = Dict[str, Any]
 
 
 def _to_tensor(x, device, dtype) -> torch.Tensor:
-    arr = np.array(x)          # a writable copy: JAX arrays view read-only
-    if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    if isinstance(x, torch.Tensor):
+        t = x
     else:
-        t = torch.from_numpy(arr)
+        arr = np.array(x)      # a writable copy: JAX arrays view read-only
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
 
 
 def from_jax_params(tree, device, dtype: Optional[torch.dtype] = None):
-    """JAX parameter tree → the port's tree of tensors on ``device``
-    (floating leaves cast to ``dtype`` when given)."""
+    """JAX parameter tree (or the port's own) → the port's tree of tensors
+    on ``device`` (floating leaves cast to ``dtype`` when given)."""
     if isinstance(tree, dict):
         out = {}
         for key, val in tree.items():

@@ -3,7 +3,10 @@ search (the default num_beams=3): the port against the JAX engine with the
 same weights, the same prompt and the same text, at the small config of
 tests/test_engine.py with max_mel_tokens raised to 260 so that both engines
 take the fused+stream route (decode caps <= 256 go to the one-program route
-instead)."""
+instead). Also: the port engine built from the JAX package's own parameter
+trees, and both engines in bf16 (is_fp16=True, the main path's dtype),
+module by module."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from index_tts_dubbing_tpu_torch import config as pconfig
 from index_tts_dubbing_tpu_torch import weights
 from index_tts_dubbing_tpu_torch.engine import decode as pdecode
 from index_tts_dubbing_tpu_torch.engine.tts import IndexTTS as PortTTS
+from index_tts_dubbing_tpu_torch.models import gpt as pgpt
 
 GPT_SMALL = dict(model_dim=64, layers=2, heads=4, max_mel_tokens=260,
                  max_text_tokens=50, number_text_tokens=120,
@@ -157,3 +161,111 @@ def test_requests_outside_the_slice_raise():
         eng.infer("unused.wav", TEXT)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PortTTS(config=pcfg, device="cpu", quantize="int8")
+
+
+def _assert_same_tree(a, b, path="params"):
+    assert type(a) is type(b), path
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _assert_same_tree(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, list):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same_tree(x, y, f"{path}[{i}]")
+    else:
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+def test_params_from_jax_numpy_tree(engines, stacked):
+    """IndexTTS(params=) takes the JAX package's numpy tree, with the GPT
+    trunk stacked (as ``init``/``load_params`` give it) or as a list of
+    blocks, and holds the same tensors as the engine built from the port's
+    own tree of the same weights."""
+    jeng, peng, _ = engines
+    tree = jax.tree.map(np.asarray, jeng.params)
+    if not stacked:
+        blocks = tree["gpt"]["blocks"]
+        n = jax.tree.leaves(blocks)[0].shape[0]
+        tree["gpt"] = dict(tree["gpt"], blocks=[
+            jax.tree.map(lambda a, i=i: a[i], blocks) for i in range(n)])
+    eng = PortTTS(config=peng.cfg, device="cpu", verbose_init=False,
+                  params=tree)
+    _assert_same_tree(eng.params, peng.params)
+
+
+def test_bf16_engines_agree_module_by_module(engines):
+    """is_fp16=True in both packages on the same weights: the JAX engine's
+    bf16 tree (ml_dtypes leaves, stacked trunk) is the port's ``params``.
+    Tokens may split at bf16 near-ties of random-weight logits, so the
+    modules are held, each on shared inputs: conditioning, prefix embedding,
+    teacher-forced mel logits over prefill and 7 decode steps, and the
+    vocoder on shared bf16 latents."""
+    jeng, peng, prompt = engines
+    jbf = JaxTTS(config=jeng.cfg, verbose_init=False, is_fp16=True,
+                 params=jeng.params)
+    pbf = PortTTS(config=peng.cfg, device="cpu", verbose_init=False,
+                  is_fp16=True, params=jbf.params)
+    jp, pp, cfg = jbf.params["gpt"], pbf.params["gpt"], pbf.gpt_cfg
+    assert pp["mel_emb"]["w"].dtype == torch.bfloat16
+
+    jc = np.asarray(jbf._conditioning(jbf._cond_mel(prompt)))
+    pc = pbf._conditioning(pbf._cond_mel(prompt))
+    # float32 in both (the conditioning upcasts): < 2e-6 observed
+    np.testing.assert_allclose(pc.numpy(), jc, atol=1e-5)
+
+    rows = pbf.sentence_rows(TEXT, 20)
+    pre = jdecode.prepare_prefix_host(jbf.gpt_cfg, rows, pad_to=16)
+    args = [pre[k] for k in ("ids", "pos", "seg", "cond_idx")]
+    jemb, jkeep = jdecode.build_prefix_emb(jp, jbf.gpt_cfg, jc, *args)
+    emb, keep = pdecode.build_prefix_emb(
+        pp, cfg, torch.from_numpy(np.array(jc)),
+        *(torch.from_numpy(a).long() for a in args))
+    assert emb.dtype == torch.bfloat16
+    np.testing.assert_array_equal(emb.float().numpy(),
+                                  np.asarray(jemb, np.float32))
+
+    b, s0 = keep.shape
+    steps = 8
+    codes = np.random.default_rng(2).integers(0, cfg.start_mel_token,
+                                              size=(steps, b))
+    jcache = jgpt.init_cache(jbf.gpt_cfg, b, s0 + steps, dtype=jemb.dtype)
+    jh, jcache = jgpt.trunk_prefill(jp, jbf.gpt_cfg, jemb, jkeep, jcache)
+    cache = pgpt.init_cache(cfg, b, s0 + steps, emb.dtype, "cpu")
+    h = pgpt.trunk_prefill(pp, cfg, emb, keep, cache)
+    jkeep_all = np.concatenate([np.asarray(jkeep), np.ones((b, steps), bool)], 1)
+    keep_all = torch.cat([keep, torch.zeros((b, steps), dtype=torch.bool)], 1)
+    for j in range(steps):
+        if j:
+            slot = s0 + j - 1
+            jx = jp["mel_emb"]["w"][codes[j - 1]] + jp["mel_pos"]["w"][j + 1]
+            kk = jkeep_all & (np.arange(s0 + steps)[None, :] <= slot)
+            jh, jcache = jgpt.trunk_decode_step(jp, jbf.gpt_cfg, jx, jcache,
+                                                slot, kk)
+            keep_all[:, slot] = True
+            x = (pp["mel_emb"]["w"][torch.from_numpy(codes[j - 1])]
+                 + pp["mel_pos"]["w"][j + 1])
+            h = pgpt.trunk_decode_step(pp, cfg, x, cache, slot, keep_all)
+        jl = np.asarray(jgpt.mel_logits_from_hidden(jp, jh), np.float32)
+        pl_ = pgpt.mel_logits_from_hidden(pp, h).float().numpy()
+        # bf16 logits, rounded at different places in the two frameworks:
+        # 0.0195 observed at |logit| <= 2.75, where a bf16 ulp is 2^-6;
+        # 0.04 is 2.5 of those ulps
+        assert np.abs(jl).max() < 4.0
+        np.testing.assert_allclose(pl_, jl, atol=0.04, err_msg=f"step {j}")
+
+    lat = (np.random.default_rng(3).standard_normal((1, 150, 64)) * 0.3)
+    lat_bf = torch.from_numpy(lat.astype(np.float32)).to(torch.bfloat16)
+    mel = pbf._cond_mel(prompt).transpose(1, 2)
+    spk = pbf.vocoder.speaker_embedding(mel)
+    jspk = jbf.vocoder.speaker_embedding(jnp.asarray(mel.numpy()))
+    np.testing.assert_allclose(spk.numpy(), np.asarray(jspk), atol=1e-5)
+    got = pbf.vocoder.stream_device(lat_bf, np.array([150]), spk=spk)
+    ref = jbf.vocoder.stream_device(
+        jnp.asarray(lat_bf.float().numpy(), jnp.bfloat16), np.array([150]),
+        spk=jspk)
+    # the float32 speaker conditioning promotes both vocoders to float32
+    # after conv_pre, so only conv_pre runs in bf16: < 2e-5 observed on
+    # |wav| <= 0.37
+    np.testing.assert_allclose(got, ref, atol=1e-4)
