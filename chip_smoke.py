@@ -19,7 +19,9 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
              their plain versions at the full-width gen cache
              (20, 12, 16, 600, 64), in bfloat16 and float32, over several
              fork / source patterns and bounds; times each kernel beside its
-             plain version, its bound and (for the permutes) a library gather.
+             plain version, its bound and (for the permutes) a library gather;
+             K2 also beside the six convs of its plain version (convs_ms)
+             and the bound of its three-pass TF32 arithmetic (bound_tc_ms).
 4. main    - full-width EngineConfig(), bf16 random weights from seed 0, a
              3 s numpy prompt. Three paths, each with every launch count set
              to 0 just before it and read just after:
@@ -61,6 +63,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from index_tts_dubbing_tpu_torch.config import EngineConfig
 from index_tts_dubbing_tpu_torch.engine import decode as decode_mod
@@ -78,6 +81,7 @@ WATCHDOG_S = 900
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # dense bf16 tensor cores
+TF32_OPS_PER_S = 495e12          # dense TF32 tensor cores
 WINDOW_BATCH = 4                 # windows per vocoder call in the checks
 # K1 per window batch: 18 activations in each C > 128 stage, plus act_post
 K1_SHAPES = [(768, 576, 18), (384, 2304, 18), (192, 9216, 18), (24, 147456, 1)]
@@ -160,13 +164,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, fp32_ops: float, bf16_ops: float = 0.0):
+def bound_ms(nbytes: float, fp32_ops: float, bf16_ops: float = 0.0,
+             tf32_ops: float = 0.0):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = fp32_ops / FP32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
+    t_ops = (fp32_ops / FP32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
+             + tf32_ops / TF32_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 ACT_OPS = 58    # float32 ops per activation output: 2×6-tap up, 2 snakes, 12-tap down
+
+
+def k2_convs(c: int, t: int, k: int):
+    """The six valid-mode convs of K2's plain version at one shape: (input,
+    weight, dilation) at the widths the chain gives them, from their own
+    seed (the checks' inputs stay as they were)."""
+    gen = torch.Generator("cuda").manual_seed(2)
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    width = t + 2 * k2.chain_shrink(k, DILS)
+    convs = []
+    for d in DILS:
+        n = width - 12
+        convs.append((rand(WINDOW_BATCH, c, n), rand(c, c, k) * 0.1, d))
+        n -= d * (k - 1) + 12
+        convs.append((rand(WINDOW_BATCH, c, n), rand(c, c, k) * 0.1, 1))
+        width -= 24 + (d + 1) * (k - 1)
+    return convs
 
 
 def check_kernels(gen: torch.Generator):
@@ -232,18 +255,29 @@ def check_kernels(gen: torch.Generator):
             lim = TOL[dt] * max(1.0, ref.abs().max().item())
             if not err <= lim:
                 raise AssertionError(f"K2 {dt} C={c} T={t} k={k}: err {err} > {lim}")
+            tt = k2.pick_tile(c, k, DILS, t)
             row = {"dtype": str(dt), "C": c, "T": t, "k": k, "per_batch": 1,
-                   "max_abs_err": err, "tol": lim}
+                   "max_abs_err": err, "tol": lim, "tt": tt,
+                   "w_over_tt": (tt + 2 * k2.chain_shrink(k, DILS)) / tt}
             if dt == torch.float32:
                 row["ms"] = cuda_ms(lambda: k2.resblock_cmajor(x, *w, k, DILS), 3)
                 row["plain_ms"] = cuda_ms(
                     lambda: k2.resblock_cmajor_plain(x, *w, k, DILS), 2)
+                # diagnostic: the plain version's six convs alone (cuDNN,
+                # float32 without TF32); not a library call for K2
+                convs = k2_convs(c, t, k)
+                row["convs_ms"] = cuda_ms(lambda: [
+                    F.conv1d(v, wt, dilation=d) for v, wt, d in convs], 2)
+                del convs
                 n = WINDOW_BATCH * c * t
                 nbytes = 2 * n * es + sum(p.numel() * p.element_size()
                                           for p in w)
                 conv_ops = WINDOW_BATCH * t * 6 * 2 * c * c * k
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     nbytes, conv_ops + 6 * n * ACT_OPS)
+                # the arithmetic K2 runs: three TF32 passes per product
+                row["bound_tc_ms"], row["bound_tc_by"] = bound_ms(
+                    nbytes, 6 * n * ACT_OPS, tf32_ops=3 * conv_ops)
             out["resblock_cmajor"].append(row)
         del x, ref, got
     return out
@@ -253,12 +287,14 @@ def summarize(rows, launches: int, name: str, source: str, replaces: str):
     f32 = [r for r in rows if r["dtype"] == "torch.float32"]
     per = lambda key: sum(r[key] * r["per_batch"] for r in f32)
     bounds = [(r["bound_ms"] * r["per_batch"], r["bound_by"]) for r in f32]
+    extra = {key: per(key) for key in ("bound_tc_ms", "convs_ms")
+             if key in f32[0]}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in f32),
             "ms": per("ms"), "plain_ms": per("plain_ms"),
             "bound_ms": sum(b for b, _ in bounds),
-            "bound_by": max(bounds)[1], "library_ms": None,
+            "bound_by": max(bounds)[1], "library_ms": None, **extra,
             "per": f"one float32 window batch of {WINDOW_BATCH} at the "
                    "main-path shapes",
             "shapes": rows}

@@ -38,10 +38,10 @@ SIGNATURES = {
     "snake_cmajor": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, out, a, binv, filt, B, T, C, dtype, stream
     "snake_clast": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, out, w1, b1, w2, b2, acts, filt, B, C, T, k, d0, d1, d2, tt, cpad,
-    # dtype, stream
-    "resblock_cmajor": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _P],
+    # x, out, w1, b1, w2, b2, acts, filt, scratch, B, C, T, k, d0, d1, d2,
+    # tt, cpad, dtype, stream
+    "resblock_cmajor": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _P],
     # k, v, cp, L, BN, H, slab_elems, copy_elems, esize, stream
     "copy_on_fork": [_P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
     # k_in, v_in, k_out, v_out, src, L, BN, H, slab_elems, live_elems, esize,

@@ -1,10 +1,13 @@
-"""Kernel K2: one whole AMP resblock on C-major ``(B, C, T)``, C ≤ 128.
+"""Kernel K2: one whole AMP resblock on C-major ``(B, C, T)``.
 
 Replaces the Pallas kernel ``fused_resblock_cmajor``
 (index_tts_dubbing_tpu/ops/pallas_resblock.py:175): 3 × [anti-aliased snake
 → conv k, dilation d → anti-aliased snake → conv k → residual add] over a
-tile whose activations never return to device memory between the 6 convs
-and 6 activations. The CUDA source is ``csrc/resblock_cmajor.cu``.
+tile whose conv inputs and outputs stay in shared memory and registers; only
+the float32 residual stream goes to a per-block scratch, which stays in L2.
+The CUDA source is ``csrc/resblock_cmajor.cu``: convs on the tensor cores
+(float32 as three TF32 passes, ``tf32_split``), built for the C of the
+C ≤ 128 stages of the 1536-channel BigVGAN (``KERNEL_WIDTHS``).
 
 Numerics, as the Pallas kernel's: activations in float32; each conv rounds
 its input to the caller's dtype and accumulates in float32 with a float32
@@ -31,7 +34,9 @@ from index_tts_dubbing_tpu_torch.ops.alias_free import (DOWN_FILTER, UP_FILTER,
                                                         replicate_pad)
 
 _SMEM_LIMIT = 232448      # dynamic shared memory a block may use on sm_90
-_MAX_TILE = 512
+_MAX_TILE = 768
+_STAGES = 3               # depth of the kernel's weight ring
+KERNEL_WIDTHS = (24, 48, 96)   # C of the C ≤ 128 stages at 1536 channels
 
 
 def _pair_shrink(k: int, d: int) -> int:
@@ -134,24 +139,60 @@ def resblock_cmajor_plain(x: torch.Tensor, w1, b1, w2, b2, acts, k: int,
     return y.to(x.dtype)
 
 
+def _gemm_plan(c: int) -> Tuple[int, int, int]:
+    """K2's GEMM plan at C channels, as in ``csrc/resblock_cmajor.cu``'s
+    ``Plan``: (padded output rows, Cin rows per weight stage, slab row
+    stride)."""
+    cm = -(-c // 16) * 16
+    return cm, (c if c <= 48 else 32), cm + 8
+
+
+def _lda(w: int) -> int:
+    """Row stride of the kernel's shared buffer for a W-column tile: ≥ W-12,
+    and 8 or 24 modulo 32 words (conflict-free tensor-core operand loads)."""
+    return -(-(w - 12) // 16) * 16 + 8
+
+
+def smem_bytes(c: int, w: int) -> int:
+    """Shared memory of one K2 block (float32 sizes): the float32
+    conv/activation buffer (C, lda) and the 3-stage weight ring."""
+    _, ks, ldw = _gemm_plan(c)
+    return 4 * c * _lda(w) + 4 * _STAGES * ks * ldw
+
+
 def pick_tile(c: int, k: int, dils: Sequence[int], t: int) -> int:
-    """Output columns per block: the largest multiple of 32 (≤ 512, ≤ t
-    rounded up) whose two float32 (C, tt + 2·span) buffers and the per-warp
-    up-phase scratch fit in one block's shared memory (64 at C = 96)."""
-    span = chain_shrink(k, dils)
-    per_col = 4 * (2 * c + 16)          # Y + A rows, 8 warps × (ue, uo)
-    tt = (_SMEM_LIMIT // per_col - 2 * span) // 32 * 32
-    tt = min(tt, _MAX_TILE, -(-t // 32) * 32)
+    """Output columns per block: the largest multiple of 32 (≤ 768, ≤ t
+    rounded up) whose conv/activation buffer and weight ring fit in one
+    block's shared memory; the residual stream lives in device scratch
+    (288 at C = 96, k = 11)."""
+    w_halo = 2 * chain_shrink(k, dils)
+    tt = min(_MAX_TILE, -(-t // 32) * 32)
+    while tt >= 32 and smem_bytes(c, tt + w_halo) > _SMEM_LIMIT:
+        tt -= 32
     if tt < 32:
         raise ValueError(f"resblock_cmajor: C={c}, k={k} does not fit one "
                          f"block's shared memory")
     return tt
 
 
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's float32 operand split, in plain torch: hi = tf32(x),
+    lo = tf32(x - hi), each rounded as ``cvt.rna.tf32.f32`` rounds (to
+    nearest, ties away from zero, 10 explicit mantissa bits). hi·hi +
+    hi·lo + lo·hi is the kernel's 3-pass product. Finite inputs only."""
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 def resblock_cmajor(x: torch.Tensor, w1, b1, w2, b2, acts, k: int,
                     dils: Sequence[int]) -> torch.Tensor:
-    """One AMP resblock (B, C, T) → (B, C, T): kernel K2 on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    """One AMP resblock (B, C, T) → (B, C, T): kernel K2 on a CUDA tensor
+    (C in ``KERNEL_WIDTHS``), the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return resblock_cmajor_plain(x, w1, b1, w2, b2, acts, k, dils)
     if x.device.type != "cuda":
@@ -159,23 +200,32 @@ def resblock_cmajor(x: torch.Tensor, w1, b1, w2, b2, acts, k: int,
     if x.dim() != 3 or len(dils) != 3:
         raise ValueError("resblock_cmajor: x must be (B, C, T) with 3 dilations")
     b, c, t = x.shape
+    if c not in KERNEL_WIDTHS:
+        raise ValueError(f"resblock_cmajor: the kernel takes C in "
+                         f"{KERNEL_WIDTHS}, got {c}")
     cp = _cpad(c)
     dev = x.device
     cuda_lib.require(x, "x", dev)
     for name, wt in (("w1", w1), ("w2", w2)):
         cuda_lib.require(wt, name, dev, x.dtype, (3, k * cp, c))
+        if wt.data_ptr() % 16:
+            raise ValueError(f"resblock_cmajor: {name} must be 16-byte aligned")
     for name, bt in (("b1", b1), ("b2", b2)):
         cuda_lib.require(bt, name, dev, torch.float32, (3, c, 1))
     cuda_lib.require(acts, "acts", dev, torch.float32, (3, 4, c, 1))
     code = cuda_lib.dtype_code(x)
     tt = pick_tile(c, k, dils, t)
+    w = tt + 2 * chain_shrink(k, dils)
     out = torch.empty_like(x)
+    # the residual stream of every block, float32 (C, tt + 2·span)
+    scratch = torch.empty(b * -(-t // tt) * c * w, device=dev,
+                          dtype=torch.float32)
     lib = cuda_lib.load()
     rc = lib.resblock_cmajor(
         x.data_ptr(), out.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), acts.data_ptr(),
-        cuda_lib.filter_taps(dev).data_ptr(), b, c, t, k, *dils, tt, cp,
-        code, cuda_lib.stream_ptr(dev))
+        cuda_lib.filter_taps(dev).data_ptr(), scratch.data_ptr(), b, c, t, k,
+        *dils, tt, cp, code, cuda_lib.stream_ptr(dev))
     cuda_lib.check(rc, "resblock_cmajor")
     resblock_cmajor.launches += 1
     return out

@@ -92,8 +92,9 @@ def test_resblock_plain_matches_pallas(rng, k, t):
 
 def test_chain_shrink_and_tile():
     assert [rb_port.chain_shrink(k, (1, 3, 5)) for k in (3, 7, 11)] == [48, 72, 96]
-    # K2's sizing at C = 96: two float32 (96, 64 + 2·96) buffers + scratch fit
-    assert rb_port.pick_tile(96, 11, (1, 3, 5), 36864) == 64
+    # K2's sizing at C = 96: one float32 (96, lda ≥ 288 + 2·96 - 12)
+    # buffer and the 3-stage weight ring fit; the residual is in scratch
+    assert rb_port.pick_tile(96, 11, (1, 3, 5), 36864) == 288
     assert rb_port.pick_tile(24, 3, (1, 3, 5), 100) == 128
 
 
