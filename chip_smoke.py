@@ -211,7 +211,7 @@ def check_kernels(gen: torch.Generator):
             if not err <= lim:
                 raise AssertionError(f"K1 {dt} C={c} T={t}: err {err} > {lim}")
             row = {"dtype": str(dt), "C": c, "T": t, "per_batch": per_batch,
-                   "max_abs_err": err, "tol": lim}
+                   "max_abs_err": err, "tol": lim, "run": k1.RUN}
             if dt == torch.float32:
                 row["ms"] = cuda_ms(lambda: k1.snake_cmajor(x, al, be, True), 10)
                 row["plain_ms"] = cuda_ms(
@@ -230,8 +230,10 @@ def check_kernels(gen: torch.Generator):
             lim = TOL[dt] * max(1.0, ref.abs().max().item())
             if not err <= lim:
                 raise AssertionError(f"B3 {dt} C={c} T={t}: err {err} > {lim}")
+            vec, run, _, threads = b3.launch_plan(x)
             row = {"dtype": str(dt), "C": c, "T": t, "per_batch": per_batch,
-                   "max_abs_err": err, "tol": lim}
+                   "max_abs_err": err, "tol": lim, "vec": vec, "run": run,
+                   "threads": threads}
             if dt == torch.float32:
                 row["ms"] = cuda_ms(lambda: b3.snake_clast(x, al, be, True), 10)
                 row["plain_ms"] = cuda_ms(
@@ -280,6 +282,68 @@ def check_kernels(gen: torch.Generator):
                     nbytes, 6 * n * ACT_OPS, tf32_ops=3 * conv_ops)
             out["resblock_cmajor"].append(row)
         del x, ref, got
+    return out
+
+
+# untimed cases off the main path's shapes, each within TOL of the plain
+# version in both dtypes: T % 8 != 0, T < K1's run, C % 4 != 0, one time
+# step, and inputs 4 bytes off a 16-byte boundary (offset 1), which take the
+# kernels' scalar load paths
+K1_RAGGED = [(2, 768, 577, 0), (1, 24, 5, 0), (3, 96, 1, 0), (1, 24, 64, 1)]
+B3_RAGGED = [(1, 1000, 6, 0), (2, 577, 768, 0), (1, 1, 24, 0), (1, 64, 24, 1)]
+# the kernels fold SnakeBeta's raw parameters themselves: (parameter dtype,
+# beta given, log-scale) beyond the float32 / beta / log-scale of the rest,
+# each at (B, C, T) = (2, 96, 577) for K1 and its transpose for B3
+PARAM_CASES = [(torch.bfloat16, True, True), (torch.float32, False, True),
+               (torch.bfloat16, True, False)]
+
+
+def check_ragged(gen: torch.Generator) -> dict:
+    """K1 and B3 against their plain versions at the ragged cases."""
+    out = {"snake_cmajor": [], "snake_clast": []}
+    cases = [("snake_cmajor", k1.snake_cmajor, k1.snake_cmajor_plain, K1_RAGGED),
+             ("snake_clast", b3.snake_clast, b3.snake_clast_plain, B3_RAGGED)]
+    for dt in (torch.float32, torch.bfloat16):
+        for name, fn, plain, shapes in cases:
+            for b, d1, d2, offset in shapes:
+                n = b * d1 * d2
+                flat = torch.randn(n + offset, generator=gen, device="cuda")
+                x = flat.to(dt)[offset:].view(b, d1, d2)
+                c = d1 if name == "snake_cmajor" else d2
+                al = torch.randn(c, generator=gen, device="cuda") * 0.3
+                be = torch.randn(c, generator=gen, device="cuda") * 0.3
+                ref = plain(x, al, be, True).float()
+                got = fn(x, al, be, True).float()
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                lim = TOL[dt] * max(1.0, ref.abs().max().item())
+                if not err <= lim:
+                    raise AssertionError(f"{name} {dt} {(b, d1, d2)} offset "
+                                         f"{offset}: err {err} > {lim}")
+                out[name].append({"dtype": str(dt), "shape": [b, d1, d2],
+                                  "offset": offset, "max_abs_err": err,
+                                  "tol": lim})
+        for name, fn, plain, _ in cases:
+            shape = (2, 96, 577) if name == "snake_cmajor" else (2, 577, 96)
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            for pdt, with_beta, logscale in PARAM_CASES:
+                al = torch.randn(96, generator=gen, device="cuda") * 0.3
+                be = torch.randn(96, generator=gen, device="cuda") * 0.3
+                if not logscale:          # α, β as trained without log-scale
+                    al, be = al.exp(), be.exp()
+                al, be = al.to(pdt), (be.to(pdt) if with_beta else None)
+                ref = plain(x, al, be, logscale).float()
+                got = fn(x, al, be, logscale).float()
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                lim = TOL[dt] * max(1.0, ref.abs().max().item())
+                case = [str(pdt), with_beta, logscale]
+                if not err <= lim:
+                    raise AssertionError(f"{name} {dt} params {case}: err "
+                                         f"{err} > {lim}")
+                out[name].append({"dtype": str(dt), "shape": list(shape),
+                                  "params": case, "max_abs_err": err,
+                                  "tol": lim})
     return out
 
 
@@ -644,6 +708,11 @@ def main() -> int:
                  for r in rows} for n, rows in checks.items()}
     phase("kernels/vocoder", t0, f"max_abs_err {json.dumps(worst)}")
     t1 = time.perf_counter()
+    ragged = check_ragged(torch.Generator("cuda").manual_seed(3))
+    phase("kernels/ragged", t1, "(K1 and B3 within TOL of their plain "
+          f"versions at {len(ragged['snake_cmajor'])} + "
+          f"{len(ragged['snake_clast'])} ragged cases)")
+    t1 = time.perf_counter()
     perms = check_permutes(torch.Generator("cuda").manual_seed(1))
     phase("kernels/permute", t1, "(copy_on_fork and the four gathers equal "
           f"their plain versions in {len(perms['copy_on_fork'])} + "
@@ -734,6 +803,8 @@ def main() -> int:
     kernels[2]["launches_note"] = ("launches: the vocoder-ref stream "
                                    "(stream_device, 600 frames)")
     kernels[3]["launches_note"] = "launches: the beam-cof decode"
+    kernels[0]["ragged"] = ragged["snake_cmajor"]
+    kernels[2]["ragged"] = ragged["snake_clast"]
     kernels[4]["launches_by_path"] = gathers
     print(json.dumps({"kernels": kernels}))
     phase("total", t_all)

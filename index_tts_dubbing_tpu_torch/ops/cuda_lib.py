@@ -22,6 +22,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -34,10 +35,15 @@ NVCC_TIMEOUT_S = 300
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: argument types, in order (each returns cudaGetLastError()).
 SIGNATURES = {
-    # x, out, a, binv, filt, rows, C, T, dtype, stream
-    "snake_cmajor": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, out, a, binv, filt, B, T, C, dtype, stream
-    "snake_clast": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, out, alpha, beta, param dtype, logscale, host taps, rows, C, T,
+    # run, vec, lanes, passes, chunk, dtype, stream
+    "snake_cmajor": [_P, _P, _P, _P, _I, _I, _P] + [_I] * 9 + [_P],
+    # x, out, alpha, beta, param dtype, logscale, host taps, B, T, C, vec,
+    # run, runs, threads, dtype, stream
+    "snake_clast": [_P, _P, _P, _P, _I, _I, _P] + [_I] * 8 + [_P],
+    # dtype, vec, &threads_per_sm (int)
+    "snake_cmajor_resident": [_I, _I, _P],
+    "snake_clast_resident": [_I, _I, _P],
     # x, out, w1, b1, w2, b2, acts, filt, scratch, B, C, T, k, d0, d1, d2,
     # tt, cpad, dtype, stream
     "resblock_cmajor": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -149,6 +155,35 @@ def filter_taps(device: torch.device) -> torch.Tensor:
         from index_tts_dubbing_tpu_torch.ops.alias_free import UP_FILTER
         _filters[device] = torch.as_tensor(UP_FILTER, device=device)
     return _filters[device]
+
+
+_host_taps = None
+
+
+def host_taps() -> int:
+    """Address of the 12 taps as float32 in host memory (kept alive here),
+    for the kernels that take them by value."""
+    global _host_taps
+    if _host_taps is None:
+        from index_tts_dubbing_tpu_torch.ops.alias_free import UP_FILTER
+        _host_taps = np.ascontiguousarray(UP_FILTER, dtype=np.float32)
+    return _host_taps.ctypes.data
+
+
+_resident = {}
+
+
+def resident_threads(fn: str, device: torch.device, code: int,
+                     vec: int) -> int:
+    """Threads of a kernel that the card holds at once: ``fn`` (a
+    ``*_resident`` entry point) gives them per SM for (dtype code, vec)."""
+    key = (fn, device, code, vec)
+    if key not in _resident:
+        per_sm = ctypes.c_int(0)
+        check(getattr(load(), fn)(code, vec, ctypes.byref(per_sm)), fn)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _resident[key] = per_sm.value * sms
+    return _resident[key]
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -12,7 +12,10 @@ the upsampled edge, so outputs within ±3 frames of a boundary differ from
 the exact route (ops/alias_free.py); the interior equals it.
 
 ``snake_cmajor`` launches the kernel for a CUDA tensor and takes the plain
-version ``snake_cmajor_plain`` only for a CPU tensor.
+version ``snake_cmajor_plain`` only for a CPU tensor. ``lane_plan`` is the
+kernel's launch plan: runs of ``RUN`` outputs per lane, rows laid end to
+end over passes of 32 lanes, one wave of warps each walking a chunk of
+consecutive passes.
 """
 from __future__ import annotations
 
@@ -25,6 +28,33 @@ from index_tts_dubbing_tpu_torch.ops.alias_free import (DOWN_FILTER, UP_FILTER,
                                                         replicate_pad)
 
 _PAD = 6  # input frames each output depends on, each side
+RUN = 8   # outputs per lane (kRun in csrc/snake_cmajor.cu): two 16-byte loads
+STORING_LANES = 31   # lanes 0-30 of a pass store; lane 31 lends its pairs
+
+
+def lane_plan(rows: int, t: int, resident_warps: int) -> Tuple[int, int, int]:
+    """K1's launch plan for ``rows`` rows of ``t`` outputs: (lanes per row,
+    passes, chunk). A row takes ceil(t/RUN) lanes of RUN outputs and one
+    helper lane past its end (its pairs finish the row's last run). Virtual
+    lane v is row v // lanes, first output (v % lanes)·RUN; pass p holds
+    lanes 31p .. 31p+31, of which 0-30 store, so every lane that stores has
+    the lane after it in its pass. Warp w walks the passes [w·chunk,
+    (w+1)·chunk): no more warps than the card holds at once (one wave)."""
+    lanes = -(-t // RUN) + 1
+    passes = -(-(rows * lanes - 1) // STORING_LANES) if rows and t else 0
+    chunk = -(-passes // min(passes, resident_warps)) if passes else 1
+    return lanes, passes, chunk
+
+
+def launch_plan(x: torch.Tensor) -> Tuple[int, int, int, int]:
+    """(vec, lanes per row, passes, chunk) of K1 on the CUDA tensor x
+    (B, C, T): the 16-byte path when T % RUN == 0 and x is 16-byte aligned
+    (the output, fresh from the allocator, is)."""
+    b, c, t = x.shape
+    vec = int(t % RUN == 0 and x.data_ptr() % 16 == 0)
+    resident = cuda_lib.resident_threads("snake_cmajor_resident", x.device,
+                                         cuda_lib.dtype_code(x), vec)
+    return (vec, *lane_plan(b * c, t, resident // 32))
 
 
 def fold_params(alpha: torch.Tensor, beta: Optional[torch.Tensor],
@@ -40,6 +70,20 @@ def fold_params(alpha: torch.Tensor, beta: Optional[torch.Tensor],
     binv = 1.0 / ((bta if bta is not None else a).float() + 1e-9)
     return (a.float().reshape(channels).contiguous(),
             binv.reshape(channels).contiguous())
+
+
+def raw_params(alpha: torch.Tensor, beta: Optional[torch.Tensor],
+               channels: int, device: torch.device
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
+    """alpha and beta (or None) as the kernels take them, to fold into
+    (a, binv) as ``fold_params`` does: ``channels`` contiguous elements
+    each, one dtype (float32 or bfloat16, its code last), on ``device``."""
+    al = alpha.reshape(channels).contiguous()
+    cuda_lib.require(al, "alpha", device)
+    if beta is not None:
+        beta = beta.reshape(channels).contiguous()
+        cuda_lib.require(beta, "beta", device, al.dtype)
+    return al, beta, cuda_lib.dtype_code(al)
 
 
 def snake_cmajor_plain(x: torch.Tensor, alpha: torch.Tensor,
@@ -84,17 +128,16 @@ def snake_cmajor(x: torch.Tensor, alpha: torch.Tensor,
     if x.dim() != 3:
         raise ValueError(f"snake_cmajor: x must be (B, C, T), got {tuple(x.shape)}")
     b, c, t = x.shape
-    a, binv = fold_params(alpha, beta, logscale, c)
     cuda_lib.require(x, "x", x.device)
-    cuda_lib.require(a, "a", x.device, torch.float32, (c,))
-    cuda_lib.require(binv, "binv", x.device, torch.float32, (c,))
+    al, be, pcode = raw_params(alpha, beta, c, x.device)
     code = cuda_lib.dtype_code(x)
     out = torch.empty_like(x)
-    lib = cuda_lib.load()
-    rc = lib.snake_cmajor(x.data_ptr(), out.data_ptr(), a.data_ptr(),
-                          binv.data_ptr(),
-                          cuda_lib.filter_taps(x.device).data_ptr(),
-                          b * c, c, t, code, cuda_lib.stream_ptr(x.device))
+    vec, lanes, passes, chunk = launch_plan(x)
+    rc = cuda_lib.load().snake_cmajor(
+        x.data_ptr(), out.data_ptr(), al.data_ptr(),
+        None if be is None else be.data_ptr(), pcode, int(logscale),
+        cuda_lib.host_taps(), b * c, c, t, RUN, vec, lanes, passes, chunk,
+        code, cuda_lib.stream_ptr(x.device))
     cuda_lib.check(rc, "snake_cmajor")
     snake_cmajor.launches += 1
     return out
