@@ -32,7 +32,10 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
                          sentences padded to a batch bucket with a dead row;
              beam-cof  - the beam decode with reorder="cof" on the last
                          request's prefix, which launches copy_on_fork once
-                         per step, beside "anc" on the same prefix and noise.
+                         per step, beside "anc" on the same prefix and noise;
+                         then both once more in float32 (the weights cast to
+                         float32, the same seed) for 64 steps, the count of
+                         equal tokens printed, not asserted.
              Checks each output's length, finiteness and launches; then holds
              the windowed vocoder on the kernels against the exact route.
              vocoder-ref - WindowedVocoder(layout="ref") with use_pallas on
@@ -46,6 +49,25 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
                          everywhere; models/bigvgan.forward runs once on 144
                          frames; IndexTTS(use_pallas=True) is built on the
                          same weights.
+             Then the rest of the engine, each path with the reference's
+             default decode and its output checked (int16 at 24 kHz, finite,
+             not constant, the length of its sentences' frames) and K1 and K2
+             launched on it:
+             fused       - infer_fast, three sentences at max_mel_tokens=256:
+                         the one-program flavour (3 rows + 1 dead, a static
+                         plan of 8 windows, int16 made on the device, exactly
+                         clip(wav·32767) truncated), its float32 wav within
+                         VOCODER_TOL of stream_device on the same latents;
+             fused-short - infer_fast, one sentence at max_mel_tokens=100: a
+                         stream under window + 2·halo frames, re-vocoded at
+                         its exact length after the static plan ran;
+             staged      - infer_fast on one 121-150-token sentence, past the
+                         largest text bucket: the staged route;
+             infer       - infer on three sentences, one decode each;
+             infer_batch - two texts on the fused route, then three with an
+                         empty one in the middle on the staged route (with at
+                         most 8 sentences the empty one decodes as the
+                         one-token row [2], as in the JAX engine).
 
 Then one JSON line describing the kernels and, last, the device line.
 Float32 convs and products run without TF32 throughout (set below), so the
@@ -65,6 +87,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from index_tts_dubbing_tpu_torch import weights
 from index_tts_dubbing_tpu_torch.config import EngineConfig
 from index_tts_dubbing_tpu_torch.engine import decode as decode_mod
 from index_tts_dubbing_tpu_torch.engine import vocoder as voc_mod
@@ -124,6 +147,8 @@ VOCODER_TOL = 1e-3
 # whole stream is held to the same bound (the interior to VOCODER_TOL)
 EDGE_TOL = 0.2
 EDGE_FRAMES = 16
+# int16 LSBs between two routes over the same float32 latents
+I16_TOL = 2
 TEXTS = [
     "The quick brown fox jumps over the lazy dog near the river bank.",
     "Hello there, this is the first slice of the port speaking on the card.",
@@ -132,6 +157,11 @@ TEXTS = [
     "the language model. The vocoder then turns those codes into a waveform "
     "at twenty four kilohertz.",
 ]
+# one sentence of 121-150 tokens with no stop inside: past the largest text
+# bucket (120), so _fused_eligible refuses it
+LONG_SENTENCE = ("a dubbing editor waits on every line of a film so the engine "
+                 "reads this long sentence without a single stop inside it and "
+                 "the text bucket gives way at last")
 
 
 def phase(name: str, t0: float, detail: str = "") -> None:
@@ -582,14 +612,34 @@ def run_beam_strategies(tts: IndexTTS, prompt: str, text: str) -> dict:
             "lengths": res.lengths.cpu().tolist(), "wall_s": wall,
             "ms_per_step": 1e3 * wall / res.steps,
             "launches": {k: v for k, v in counts.items() if v}})
-    same = codes["anc"][0] == codes["cof"][0]
-    out["agree"] = {
-        "tokens": int(same.sum()), "of": same.numel(),
-        "first_diff_step": [int(r.nonzero()[0]) if r.any() else None
-                            for r in ~same],
-        "anc_repeat_identical": bool(torch.equal(*codes["anc"])),
-        "cof_repeat_identical": bool(torch.equal(*codes["cof"]))}
+    out["agree"] = dict(agreement(codes["anc"][0], codes["cof"][0]),
+                        anc_repeat_identical=bool(torch.equal(*codes["anc"])),
+                        cof_repeat_identical=bool(torch.equal(*codes["cof"])))
+    # ROADMAP C6: the same prefix and seed in float32 (the bf16 weights cast
+    # up, float32 products without TF32), 64 steps; reported, not asserted
+    p32 = weights.cast_floating(params, torch.float32)
+    emb32, keep32 = decode_mod.build_prefix_emb(p32, cfg, conds, x["ids"],
+                                                x["pos"], x["seg"],
+                                                x["cond_idx"])
+    sc64 = replace(sc, max_mel_tokens=64)
+    f32 = {}
+    for reorder in ("anc", "cof"):
+        gen = torch.Generator("cuda").manual_seed(1)
+        f32[reorder] = decode_mod._beam_decode(
+            p32, cfg, sc64, emb32, keep32, gen, 3, 0.0, stochastic=True,
+            reorder=reorder, live=x["live"]).codes.cpu()
+    out["agree_float32"] = dict(agreement(f32["anc"], f32["cof"]), steps=64)
+    del p32, emb32
     return out
+
+
+def agreement(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Equal tokens of two (rows, steps) code tensors, and per row the first
+    step at which they differ (None: never)."""
+    same = a == b
+    return {"tokens": int(same.sum()), "of": same.numel(),
+            "first_diff_step": [int(r.nonzero()[0]) if r.any() else None
+                                for r in ~same]}
 
 
 def check_vocoder(tts: IndexTTS) -> float:
@@ -674,6 +724,176 @@ def run_vocoder_ref(tts: IndexTTS) -> dict:
             "launches": {k: v for k, v in counts.items() if v},
             "host_vs_stream": host_err, "vs_exact_interior": inner,
             "vs_exact_whole": whole, "forward_vs_window": fwd_err}
+
+
+def run_path(tts: IndexTTS, call):
+    """One request of the engine with every launch count set to 0 just
+    before it: (its output, the counts, a report). K1 and K2 must launch."""
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if min(counts["snake_cmajor"], counts["resblock_cmajor"]) < 1:
+        raise AssertionError(f"vocoder kernels did not launch: {counts}")
+    lt = tts.last_times
+    frames = np.asarray(tts.last_sentence_frames)
+    report = {"path": tts.last_path, "decode": lt.decode,
+              "steps": lt.decode_steps, "frames": frames.tolist(),
+              "audio_s": lt.audio_seconds, "wall_s": wall, "rtf": lt.rtf,
+              "gpt_gen_s": lt.gpt_gen, "gpt_forward_s": lt.gpt_forward,
+              "bigvgan_s": lt.bigvgan,
+              "gpt_gen_ms_per_step": 1e3 * lt.gpt_gen / max(lt.decode_steps, 1),
+              "launches": {k: v for k, v in counts.items() if v}}
+    return out, counts, report
+
+
+def check_audio(name: str, sr: int, wav: np.ndarray, frames: int,
+                upsample: int) -> None:
+    """int16 at 24 kHz, (frames·upsample, 1), not constant."""
+    want = int(frames) * upsample
+    if sr != 24000 or wav.dtype != np.int16 or wav.shape != (want, 1):
+        raise AssertionError(f"{name}: {sr} Hz {wav.dtype} {wav.shape}, want "
+                             f"24000 Hz int16 ({want}, 1)")
+    if want and wav.min() == wav.max():
+        raise AssertionError(f"{name}: constant wav")
+
+
+def check_finite(name: str, wav: np.ndarray) -> None:
+    if not np.isfinite(wav).all():
+        raise AssertionError(f"{name}: non-finite samples")
+
+
+def to_i16(wav: np.ndarray) -> np.ndarray:
+    return np.clip(wav * 32767.0, -32767.0, 32767.0).astype(np.int16)
+
+
+def expect(name: str, tts: IndexTTS, path: str, flavor=None) -> None:
+    got = (tts.last_path, tts.last_fused_flavor if flavor else None)
+    if got != (path, flavor):
+        raise AssertionError(f"{name}: took {got}, want {(path, flavor)}")
+
+
+def run_fused(tts: IndexTTS, prompt: str, spk: torch.Tensor):
+    """Three sentences at max_mel_tokens=256: the one-program flavour."""
+    voc = tts.vocoder
+    (sr, wav), counts, rep = run_path(
+        tts, lambda: tts.infer_fast(prompt, TEXTS[2], max_mel_tokens=256))
+    expect("fused", tts, "fused", "fused")
+    res = tts.last_fused_res
+    lens = res.lens.cpu().numpy()
+    if res.codes.shape[0] != 4 or lens[3] != 0:
+        raise AssertionError(f"fused: batch {res.codes.shape[0]}, lens {lens}")
+    windows = res.wav.numel() // (voc.window * voc.upsample)
+    if windows != 8:
+        raise AssertionError(f"fused: {windows} windows planned, want 8")
+    t = int(res.stream_frames)
+    check_audio("fused", sr, wav, lens.sum(), voc.upsample)
+    fwav = res.wav.cpu().numpy()
+    check_finite("fused", fwav[: t * voc.upsample])
+    if not np.array_equal(res.wav_i16.cpu().numpy(), to_i16(fwav)):
+        raise AssertionError("fused: wav_i16 is not clip(wav·32767) truncated")
+    if not np.array_equal(wav[:, 0], to_i16(fwav[: t * voc.upsample])):
+        raise AssertionError("fused: the output is not the device's int16")
+    ref = voc.stream_device(res.lat, lens, order=np.arange(3), spk=spk)
+    err = float(np.abs(fwav[: t * voc.upsample] - ref).max())
+    if not err <= VOCODER_TOL:
+        raise AssertionError(f"fused vs stream_device: {err} > {VOCODER_TOL}")
+    rep.update(rows=3, windows=windows, stream_frames=t,
+               vs_stream_device=err)
+    return counts, rep
+
+
+def run_fused_short(tts: IndexTTS, prompt: str, spk: torch.Tensor):
+    """One sentence at max_mel_tokens=100: shorter than window + 2·halo, so
+    re-vocoded at its exact length; held to the exact stream within
+    I16_TOL."""
+    voc = tts.vocoder
+    (sr, wav), counts, rep = run_path(
+        tts, lambda: tts.infer_fast(prompt, TEXTS[0], max_mel_tokens=100))
+    expect("fused-short", tts, "fused", "fused")
+    res = tts.last_fused_res
+    lens = res.lens.cpu().numpy()
+    t = int(res.stream_frames)
+    if not t < voc.window + 2 * voc.halo:
+        raise AssertionError(f"fused-short: {t} frames, no short fallback")
+    check_audio("fused-short", sr, wav, lens.sum(), voc.upsample)
+    ref = voc.stream_device(res.lat, lens, order=np.arange(1), spk=spk)
+    check_finite("fused-short", ref)
+    diff = int(np.abs(to_i16(ref).astype(np.int32)
+                      - wav[:, 0].astype(np.int32)).max())
+    if diff > I16_TOL:
+        raise AssertionError(f"fused-short vs the exact stream: {diff} LSB")
+    rep.update(rows=1, stream_frames=t, vs_exact_stream_lsb=diff)
+    return counts, rep
+
+
+def run_staged(tts: IndexTTS, prompt: str):
+    """infer_fast on one sentence past the largest text bucket."""
+    rows = tts.sentence_rows(LONG_SENTENCE, 200)
+    if len(rows) != 1 or not 121 <= rows[0].size <= 150 \
+            or tts._fused_eligible(rows):
+        raise AssertionError(f"staged: sentence rows {[r.size for r in rows]}")
+    (sr, wav), counts, rep = run_path(tts, lambda: tts.infer_fast(
+        prompt, LONG_SENTENCE, max_text_tokens_per_sentence=200,
+        max_mel_tokens=300))
+    expect("staged", tts, "staged")
+    check_audio("staged", sr, wav, tts.last_sentence_frames.sum(),
+                tts.vocoder.upsample)
+    check_finite("staged", tts.last_wav)
+    rep.update(rows=1, text_tokens=int(rows[0].size))
+    return counts, rep
+
+
+def run_infer(tts: IndexTTS, prompt: str):
+    """Sequential infer: three sentences, one decode each."""
+    (sr, wav), counts, rep = run_path(
+        tts, lambda: tts.infer(prompt, TEXTS[2], max_mel_tokens=200))
+    expect("infer", tts, "staged")
+    frames = tts.last_sentence_frames
+    if frames.size != 3:
+        raise AssertionError(f"infer: {frames.size} sentences, want 3")
+    check_audio("infer", sr, wav, frames.sum(), tts.vocoder.upsample)
+    check_finite("infer", tts.last_wav)
+    rep.update(rows=3)
+    return counts, rep
+
+
+def run_infer_batch(tts: IndexTTS, prompt: str):
+    """Two infer_batch calls: [TEXTS[0], TEXTS[1]] on the fused route, then
+    [TEXTS[0], "", TEXTS[1]] on the staged one. Each text's length is the
+    frames of its own sentences."""
+    total = {name: 0 for name in COUNTED}
+    reports = []
+    for texts, path in (([TEXTS[0], TEXTS[1]], "fused"),
+                        ([TEXTS[0], "", TEXTS[1]], "staged")):
+        outs, counts, rep = run_path(tts, lambda: tts.infer_batch(
+            prompt, texts, max_mel_tokens=200))
+        expect(f"infer_batch/{path}", tts, path,
+               "fused" if path == "fused" else None)
+        frames = tts.last_sentence_frames
+        n_sent = [max(len(tts.sentence_rows(t, 120)), 1) for t in texts]
+        bounds = np.cumsum([0] + n_sent)
+        if len(outs) != len(texts) or bounds[-1] != frames.size:
+            raise AssertionError(f"infer_batch/{path}: {len(outs)} outputs, "
+                                 f"{frames.size} sentences")
+        for ti, (sr, wav) in enumerate(outs):
+            check_audio(f"infer_batch/{path} text {ti}", sr, wav,
+                        frames[bounds[ti]: bounds[ti + 1]].sum(),
+                        tts.vocoder.upsample)
+        if path == "fused":
+            res = tts.last_fused_res
+            t = int(res.stream_frames) * tts.vocoder.upsample
+            check_finite("infer_batch/fused", res.wav[:t].cpu().numpy())
+        else:
+            check_finite("infer_batch/staged", tts.last_wav)
+        rep.update(rows=len(n_sent), texts=len(texts),
+                   samples=[int(w.shape[0]) for _, w in outs])
+        reports.append(rep)
+        total = {k: total[k] + counts[k] for k in total}
+    return total, reports
 
 
 def main() -> int:
@@ -763,6 +983,17 @@ def main() -> int:
         ref_report = run_vocoder_ref(tts)
         paths["vocoder-ref"] = ref_report["launches"]
         phase("main/vocoder-ref", t1, json.dumps(ref_report))
+
+        spk = tts.vocoder.speaker_embedding(tts._cond_mel(prompt).transpose(1, 2))
+        for name, run in (("fused", lambda: run_fused(tts, prompt, spk)),
+                          ("fused-short",
+                           lambda: run_fused_short(tts, prompt, spk)),
+                          ("staged", lambda: run_staged(tts, prompt)),
+                          ("infer", lambda: run_infer(tts, prompt)),
+                          ("infer_batch", lambda: run_infer_batch(tts, prompt))):
+            t1 = time.perf_counter()
+            paths[name], report = run()
+            phase(f"main/{name}", t1, json.dumps(report))
     phase("main", t0)
 
     by_path = lambda name: {p: c.get(name, 0) for p, c in paths.items()}
@@ -799,7 +1030,8 @@ def main() -> int:
                                  "snake_clast", "copy_on_fork")):
         k["launches_by_path"] = by_path(name)
     kernels[0]["launches_note"] = kernels[1]["launches_note"] = (
-        "launches: the default beam path (three requests)")
+        "launches: the default beam path (three requests); every path in "
+        "launches_by_path")
     kernels[2]["launches_note"] = ("launches: the vocoder-ref stream "
                                    "(stream_device, 600 frames)")
     kernels[3]["launches_note"] = "launches: the beam-cof decode"

@@ -143,10 +143,11 @@ def test_infer_fast_beam_search_matches_jax(engines):
     _assert_same_audio(jeng, peng, jout, pout)
 
 
-def test_requests_outside_the_slice_raise():
-    """The one-program flavour (decode cap <= 256), the other entry points,
-    the off-slice constructor options and the unported beam history
-    strategies name their later slice instead of running."""
+def test_requests_outside_the_slice_raise(engines):
+    """The unported beam history strategies, the off-slice constructor
+    options and continuous batching name their later slice instead of
+    running."""
+    _, _, prompt = engines
     pcfg = pconfig.EngineConfig(gpt=pconfig.GPTConfig(**GPT_SMALL),
                                 bigvgan=pconfig.BigVGANConfig(**BV_SMALL))
     eng = PortTTS(config=pcfg, device="cpu", verbose_init=False)
@@ -155,10 +156,10 @@ def test_requests_outside_the_slice_raise():
                              pdecode.SamplingConfig(), torch.zeros(1, 3, 64),
                              torch.ones(1, 3, dtype=torch.bool), None, 3, 0.0,
                              stochastic=False, reorder="split")
-    with pytest.raises(NotImplementedError, match="one-program"):
-        eng.infer_fast("unused.wav", TEXT, num_beams=1, max_mel_tokens=200)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.infer("unused.wav", TEXT)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 14"):
+        eng.infer_batch(prompt, [TEXT], continuous=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 14"):
+        PortTTS(config=pcfg, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PortTTS(config=pcfg, device="cpu", quantize="int8")
 
