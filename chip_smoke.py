@@ -68,6 +68,32 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
                          empty one in the middle on the staged route (with at
                          most 8 sentences the empty one decodes as the
                          one-token row [2], as in the JAX engine).
+5. surface - the user surfaces on the same bf16 weights, each call with
+             every launch count set to 0 just before it and K1 and K2
+             required after it. Every engine a surface builds is a
+             CountedTTS: it counts its infer / infer_batch calls and keeps
+             their errors and reports, because the dubbing strategies catch
+             an engine's exceptions (a failed batch falls back to per-entry
+             calls, a failed entry to silence).
+             checkpoint  - the running engine's weights written as float32
+                         gpt.npz + bigvgan.npz (utils.checkpoint), then
+                         IndexTTS(model_dir=..., is_fp16=True): every leaf
+                         equal; bytes, write and load seconds;
+             cli         - cli.main with --model_dir --fp16 --fast -f on one
+                         sentence (the CLI's 600-step cap, infer_fast): an
+                         int16 24 kHz wav of whole frames, not constant;
+             dubbing-stretch - dubbing.cli.main with the stretch strategy on
+                         three SRT entries (one Chinese) and the CLI's
+                         defaults: exactly one infer_batch, no silent
+                         segment, the merged wav sounding in every placed
+                         segment and every entry's span;
+             dubbing-adaptive - the CLI's five stages driven here with the
+                         adaptive strategy on two entries and
+                         max_mel_tokens=150: per entry one infer and one
+                         infer_batch of 4 candidates whose codes differ
+                         pairwise, no silent segment.
+             Random weights never emit the stop token, so every candidate has
+             the same length: which one wins is not checked.
 
 Then one JSON line describing the kernels and, last, the device line.
 Float32 convs and products run without TF32 throughout (set below), so the
@@ -75,11 +101,14 @@ plain versions are float32 references.
 """
 import argparse
 import faulthandler
+import gc
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import wave
 from dataclasses import replace
 from pathlib import Path
 
@@ -87,9 +116,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from index_tts_dubbing_tpu_torch import cli as cli_mod
 from index_tts_dubbing_tpu_torch import weights
 from index_tts_dubbing_tpu_torch.config import EngineConfig
+from index_tts_dubbing_tpu_torch.dubbing import cli as dub_cli
+from index_tts_dubbing_tpu_torch.dubbing import config as dub_config
+from index_tts_dubbing_tpu_torch.dubbing import engines as dub_engines
+from index_tts_dubbing_tpu_torch.dubbing import strategies as dub_strategies
+from index_tts_dubbing_tpu_torch.dubbing.audio_processor import AudioProcessor
+from index_tts_dubbing_tpu_torch.dubbing.srt_parser import SRTParser
 from index_tts_dubbing_tpu_torch.engine import decode as decode_mod
+from index_tts_dubbing_tpu_torch.engine import tts as tts_mod
 from index_tts_dubbing_tpu_torch.engine import vocoder as voc_mod
 from index_tts_dubbing_tpu_torch.engine.tts import IndexTTS
 from index_tts_dubbing_tpu_torch.models import bigvgan as bigvgan_mod
@@ -98,6 +135,7 @@ from index_tts_dubbing_tpu_torch.ops import permute
 from index_tts_dubbing_tpu_torch.ops import resblock_cmajor as k2
 from index_tts_dubbing_tpu_torch.ops import snake_clast as b3
 from index_tts_dubbing_tpu_torch.ops import snake_cmajor as k1
+from index_tts_dubbing_tpu_torch.utils import checkpoint
 from index_tts_dubbing_tpu_torch.utils.audio import write_wav
 
 WATCHDOG_S = 900
@@ -896,6 +934,317 @@ def run_infer_batch(tts: IndexTTS, prompt: str):
     return total, reports
 
 
+# ----------------------------------------------------------- the surfaces
+
+# three SRT entries, one of them Chinese (stretch), and two (adaptive)
+SRT_STRETCH = """1
+00:00:00,000 --> 00:00:02,000
+The quick brown fox jumps over the lazy dog.
+
+2
+00:00:02,500 --> 00:00:04,000
+这是第二段字幕，在显卡上配音。
+
+3
+00:00:04,500 --> 00:00:06,000
+Hello there, the third line of the film.
+"""
+SRT_ADAPTIVE = """1
+00:00:00,000 --> 00:00:02,000
+A short line for the adaptive strategy.
+
+2
+00:00:02,500 --> 00:00:04,500
+And a second one that follows it.
+"""
+ADAPTIVE_CAP = 150
+N_CANDIDATES = 4                 # IndexTTSEngine.synthesize_to_duration's
+
+
+class CountedTTS(IndexTTS):
+    """The engine as the surfaces build it, counting what reaches it. The
+    dubbing strategies catch an engine's exceptions and fall back (a failed
+    batch to per-entry calls, a failed entry to silence), so the phases
+    count the calls, keep every error, and keep each batched call's codes
+    on the one-program route."""
+
+    built: list = []
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.calls, self.errors, self.batch_codes, self.reports = [], [], [], []
+        CountedTTS.built.append(self)
+
+    def _counted(self, name, fn, *args, **kwargs):
+        self.calls.append(name)
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args, **kwargs)
+        except Exception as e:
+            self.errors.append(f"{name}: {e!r}")
+            raise
+        torch.cuda.synchronize()
+        lt = self.last_times
+        self.reports.append({
+            "call": name, "path": self.last_path,
+            "flavor": self.last_fused_flavor if self.last_path == "fused"
+            else None, "decode": lt.decode, "steps": lt.decode_steps,
+            "audio_s": lt.audio_seconds, "wall_s": time.perf_counter() - t0,
+            "rtf": lt.rtf, "gpt_gen_s": lt.gpt_gen, "bigvgan_s": lt.bigvgan,
+            "gpt_gen_ms_per_step": 1e3 * lt.gpt_gen / max(lt.decode_steps, 1)})
+        return out
+
+    def infer(self, *args, **kwargs):
+        return self._counted("infer", super().infer, *args, **kwargs)
+
+    def infer_batch(self, audio_prompt, texts, **kwargs):
+        out = self._counted("infer_batch", super().infer_batch, audio_prompt,
+                            texts, **kwargs)
+        if self.last_path == "fused":
+            self.batch_codes.append(
+                self.last_fused_res.codes[:len(texts)].cpu())
+        return out
+
+
+class surfaces_built_counted:
+    """Within the block every IndexTTS the surfaces build is a CountedTTS
+    with bf16 weights (IndexTTSConfig.FP16, the dubbing layer's setting);
+    the engines are released after it."""
+
+    def __enter__(self):
+        self.saved = tts_mod.IndexTTS, dub_config.IndexTTSConfig.FP16
+        tts_mod.IndexTTS = CountedTTS
+        dub_config.IndexTTSConfig.FP16 = True
+        return CountedTTS.built
+
+    def __exit__(self, *exc):
+        tts_mod.IndexTTS, dub_config.IndexTTSConfig.FP16 = self.saved
+        CountedTTS.built.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tree_numpy_f32(tree):
+    """A tree of tensors as numpy, floating leaves in float32."""
+    if isinstance(tree, dict):
+        return {k: tree_numpy_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_numpy_f32(v) for v in tree]
+    return (tree.float() if tree.is_floating_point() else tree).cpu().numpy()
+
+
+def leaves(tree, prefix: str = "") -> dict:
+    """A tree of tensors as {"a/0/b": tensor}."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(leaves(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def read_wav_i16(path) -> tuple:
+    with wave.open(str(path), "rb") as w:
+        if w.getsampwidth() != 2 or w.getnchannels() != 1:
+            raise AssertionError(f"{path}: not mono int16")
+        return (np.frombuffer(w.readframes(w.getnframes()), "<i2"),
+                w.getframerate())
+
+
+def surface_launches() -> dict:
+    counts = read_counts()
+    if min(counts["snake_cmajor"], counts["resblock_cmajor"]) < 1:
+        raise AssertionError(f"vocoder kernels did not launch: {counts}")
+    return counts
+
+
+def run_checkpoint(tts: IndexTTS, model_dir: Path) -> dict:
+    """The running engine's weights as float32 gpt.npz + bigvgan.npz, then
+    IndexTTS(model_dir=..., is_fp16=True) on the card: every leaf equal to
+    the running engine's (bf16 → f32 → bf16 is exact)."""
+    free = shutil.disk_usage(model_dir).free
+    t0 = time.perf_counter()
+    for part in ("gpt", "bigvgan"):
+        checkpoint.save_params(model_dir / f"{part}.npz",
+                               tree_numpy_f32(tts.params[part]))
+    write_s = time.perf_counter() - t0
+    nbytes = {p.name: p.stat().st_size for p in model_dir.glob("*.npz")}
+    t0 = time.perf_counter()
+    loaded = IndexTTS(model_dir=str(model_dir), is_fp16=True,
+                      verbose_init=False)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want, got = leaves(tts.params), leaves(loaded.params)
+    if got.keys() != want.keys():
+        raise AssertionError(f"loaded keys differ: {set(got) ^ set(want)}")
+    bad = [k for k in want if got[k].dtype != want[k].dtype
+           or got[k].device != want[k].device or not torch.equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"{len(bad)} leaves differ, first {bad[:3]}")
+    n_params = sum(v.numel() for v in want.values())
+    del loaded
+    return {"leaves": len(want), "params": n_params, "bytes": nbytes,
+            "disk_free_before": free, "write_s": write_s, "load_s": load_s}
+
+
+def run_cli(model_dir: Path, prompt: str) -> tuple:
+    """indextts-torch (cli.main) with --model_dir --fp16 --fast -f on one
+    sentence: the written wav is int16 at 24 kHz, whole frames, not
+    constant; K1 and K2 launch."""
+    out = model_dir / "cli.wav"
+    with surfaces_built_counted() as built:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = cli_mod.main([TEXTS[1], "-v", prompt, "-o", str(out),
+                           "--model_dir", str(model_dir), "--fp16", "--fast",
+                           "-f"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = surface_launches()
+        if rc != 0 or len(built) != 1:
+            raise AssertionError(f"cli: rc {rc}, {len(built)} engines built")
+        tts = built[0]
+        if tts.dtype != torch.bfloat16 or tts.last_path != "fused":
+            raise AssertionError(f"cli: {tts.dtype}, route {tts.last_path}")
+        lt = tts.last_times
+        report = {"route": f"{tts.last_path} ({tts.last_fused_flavor})",
+                  "decode": lt.decode, "steps": lt.decode_steps,
+                  "audio_s": lt.audio_seconds, "wall_s": wall,
+                  "rtf": lt.rtf, "gpt_gen_s": lt.gpt_gen,
+                  "bigvgan_s": lt.bigvgan,
+                  "gpt_gen_ms_per_step": 1e3 * lt.gpt_gen / lt.decode_steps}
+    wav, sr = read_wav_i16(out)
+    if sr != 24000 or wav.size == 0 or wav.size % 1024 or wav.min() == wav.max():
+        raise AssertionError(f"cli wav: {sr} Hz, {wav.size} samples, "
+                             f"range [{wav.min()}, {wav.max()}]")
+    report.update(samples=int(wav.size),
+                  launches={k: v for k, v in counts.items() if v})
+    return counts, report
+
+
+def check_segments(name: str, segments: list, n: int) -> None:
+    """n segments, none the strategies' silence fallback, all finite."""
+    if len(segments) != n:
+        raise AssertionError(f"{name}: {len(segments)} segments, want {n}")
+    for seg in segments:
+        audio = np.asarray(seg["audio_data"])
+        if not np.isfinite(audio).all() or not np.abs(audio).max() > 0:
+            raise AssertionError(f"{name}: entry {seg['index']} is silent or "
+                                 "not finite (the silence fallback)")
+
+
+def run_dubbing_stretch(model_dir: Path, prompt: str) -> tuple:
+    """srt-dubbing-torch (dubbing.cli.main) with the stretch strategy on
+    three entries: one infer_batch and no other call, no silent segment,
+    and the merged wav sounding in every segment's placed span (start, or
+    the previous segment's end when they overlap) and in every entry's
+    span, at least as long as the last entry's end."""
+    srt = model_dir / "stretch.srt"
+    srt.write_text(SRT_STRETCH, encoding="utf-8")
+    out = model_dir / "stretch.wav"
+    segments = []
+    real_get_strategy = dub_cli.get_strategy
+
+    def recording_get_strategy(name, engine, **kwargs):
+        strategy = real_get_strategy(name, engine, **kwargs)
+        inner = strategy.process_entries
+
+        def process(entries, **kw):
+            segs = inner(entries, **kw)
+            segments.extend(segs)
+            return segs
+
+        strategy.process_entries = process
+        return strategy
+
+    with surfaces_built_counted() as built:
+        dub_cli.get_strategy = recording_get_strategy
+        try:
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            rc = dub_cli.main(["--srt", str(srt), "--voice", prompt,
+                               "--output", str(out), "--model-dir",
+                               str(model_dir), "--strategy", "stretch"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            dub_cli.get_strategy = real_get_strategy
+        counts = surface_launches()
+        if rc != 0 or len(built) != 1:
+            raise AssertionError(f"stretch: rc {rc}, {len(built)} engines")
+        tts = built[0]
+        if tts.calls != ["infer_batch"] or tts.errors:
+            raise AssertionError(f"stretch: engine calls {tts.calls}, "
+                                 f"errors {tts.errors}")
+        reports = tts.reports
+    check_segments("stretch", segments, 3)
+    wav, sr = read_wav_i16(out)
+    pos = 0
+    for seg in sorted(segments, key=lambda s: s["start_time"]):
+        start = max(int(seg["start_time"] * sr), pos)
+        pos = start + len(seg["audio_data"])
+        for a, b in ((start, pos), (int(seg["start_time"] * sr),
+                                    int(seg["end_time"] * sr))):
+            if not np.abs(wav[a:b]).max() > 0:
+                raise AssertionError(f"stretch: silent at [{a}, {b})")
+    if sr != 24000 or wav.size < max(pos, int(segments[-1]["end_time"] * sr)):
+        raise AssertionError(f"stretch wav: {sr} Hz, {wav.size} samples")
+    return counts, {"wall_s": wall, "calls": reports,
+                    "segment_samples": [len(s["audio_data"]) for s in segments],
+                    "samples": int(wav.size),
+                    "launches": {k: v for k, v in counts.items() if v}}
+
+
+def run_dubbing_adaptive(model_dir: Path, prompt: str) -> tuple:
+    """The five stages of the dubbing CLI driven here (the CLI passes no
+    decode cap) with the adaptive strategy on two entries and
+    max_mel_tokens=150: per entry one infer and one infer_batch of
+    N_CANDIDATES rows whose codes differ pairwise, no silent segment."""
+    with surfaces_built_counted() as built:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        engine = dub_engines.get_tts_engine("index_tts",
+                                            model_dir=str(model_dir))
+        entries = SRTParser().parse_content(SRT_ADAPTIVE)
+        strategy = dub_strategies.get_strategy("adaptive", engine)
+        segments = strategy.process_entries(entries, voice_reference=prompt,
+                                            max_mel_tokens=ADAPTIVE_CAP)
+        processor = AudioProcessor(sample_rate=engine.tts.cfg.mel.sample_rate)
+        merged = processor.merge_audio_segments(segments, "adaptive")
+        if not processor.export_audio(merged, str(model_dir / "adaptive.wav")):
+            raise AssertionError("adaptive: export failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = surface_launches()
+        if len(built) != 1:
+            raise AssertionError(f"adaptive: {len(built)} engines built")
+        tts = built[0]
+        if tts.calls != ["infer", "infer_batch"] * 2 or tts.errors:
+            raise AssertionError(f"adaptive: engine calls {tts.calls}, "
+                                 f"errors {tts.errors}")
+        for codes in tts.batch_codes:
+            if codes.shape != (N_CANDIDATES, ADAPTIVE_CAP):
+                raise AssertionError(f"adaptive: candidates {codes.shape}")
+            same = [(i, j) for i in range(N_CANDIDATES) for j in range(i)
+                    if torch.equal(codes[i], codes[j])]
+            if same:
+                raise AssertionError(f"adaptive: candidate rows equal {same}")
+        if len(tts.batch_codes) != 2:
+            raise AssertionError("adaptive: a batch left the one-program route")
+        reports = tts.reports
+    check_segments("adaptive", segments, 2)
+    if merged.size != sum(len(s["audio_data"]) for s in segments) \
+            or merged.min() == merged.max():
+        raise AssertionError(f"adaptive merged: {merged.size} samples")
+    return counts, {"wall_s": wall, "calls": reports,
+                    "segment_samples": [len(s["audio_data"]) for s in segments],
+                    "launches": {k: v for k, v in counts.items() if v}}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     argparse.ArgumentParser(description=__doc__,
@@ -994,7 +1343,21 @@ def main() -> int:
             t1 = time.perf_counter()
             paths[name], report = run()
             phase(f"main/{name}", t1, json.dumps(report))
-    phase("main", t0)
+        phase("main", t0)
+
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as model_dir:
+            model_dir = Path(model_dir)
+            t1 = time.perf_counter()
+            phase("surface/checkpoint", t1,
+                  json.dumps(run_checkpoint(tts, model_dir)))
+            for name, run in (("cli", run_cli),
+                              ("dubbing-stretch", run_dubbing_stretch),
+                              ("dubbing-adaptive", run_dubbing_adaptive)):
+                t1 = time.perf_counter()
+                paths[f"surface/{name}"], report = run(model_dir, prompt)
+                phase(f"surface/{name}", t1, json.dumps(report))
+        phase("surface", t0)
 
     by_path = lambda name: {p: c.get(name, 0) for p, c in paths.items()}
     gathers = {p: sum(c.get(fn.__name__, 0) for fn in permute.GATHERS)

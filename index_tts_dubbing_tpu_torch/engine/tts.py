@@ -38,6 +38,9 @@ from index_tts_dubbing_tpu_torch.engine.vocoder import WindowedVocoder
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
 from index_tts_dubbing_tpu_torch.ops.mel import MelSpectrogram
 from index_tts_dubbing_tpu_torch.utils import audio as audio_util
+from index_tts_dubbing_tpu_torch.utils import convert
+from index_tts_dubbing_tpu_torch.utils.checkpoint import (flatten_tree,
+                                                          load_params)
 from index_tts_dubbing_tpu_torch.utils.front import (TextNormalizer,
                                                      TextTokenizer)
 
@@ -166,6 +169,20 @@ def bucket_sentences(sentences: Sequence, bucket_max_size: int = 4
     return out_buckets
 
 
+def load_npz_params(path) -> Dict[str, Any]:
+    """``utils.checkpoint.load_params``, refusing a leaf whose dtype numpy
+    cannot read as numbers: a bfloat16 array saved by numpy with
+    ``ml_dtypes`` reads back as raw two-byte voids (``|V2``), which would
+    otherwise load as garbage."""
+    tree = load_params(path)
+    for key, leaf in flatten_tree(tree).items():
+        if leaf.dtype.kind not in "biuf":
+            raise ValueError(f"{path}: leaf {key!r} has dtype {leaf.dtype}, "
+                             "which numpy cannot read as numbers; save the "
+                             "checkpoint in float32")
+    return tree
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -231,7 +248,9 @@ class IndexTTS:
     ``params``: the port's tree of tensors, or the JAX package's tree as its
     ``init`` or ``load_params`` gives it (numpy or ``ml_dtypes`` leaves, the
     GPT trunk stacked or not); either is moved to ``device`` and cast to the
-    engine's dtype.
+    engine's dtype. Without it the weights come from ``model_dir``
+    (``gpt.npz`` + ``bigvgan.npz``, else the reference's ``.pth`` pair),
+    else from ``seed`` (``_load_params``).
 
     ``use_pallas`` sets ``BigVGANConfig.use_pallas``, as the JAX engine does:
     the channels-last BigVGAN (models/bigvgan.py) and every
@@ -283,12 +302,7 @@ class IndexTTS:
         self.model_version = self.cfg.version
         self._log = print if verbose_init else (lambda *a, **k: None)
         if params is None:
-            if self.model_dir is not None and any(
-                    (self.model_dir / f).exists()
-                    for f in ("gpt.npz", self.cfg.gpt_checkpoint)):
-                raise _later("checkpoint loading", "queue A, item 14")
-            gen = torch.Generator(self.device).manual_seed(seed)
-            params = weights.init(self.cfg, gen, self.device)
+            params = self._load_params(seed)
         self.params = weights.from_jax_params(params, self.device, self.dtype)
         self.normalizer = TextNormalizer()
         self.normalizer.load()
@@ -309,6 +323,33 @@ class IndexTTS:
         self._generator = torch.Generator(self.device).manual_seed(seed)
 
     # ------------------------------------------------------------------
+    def _load_params(self, seed: int) -> Dict[str, Any]:
+        """The model directory's checkpoints: ``gpt.npz`` + ``bigvgan.npz``
+        (``utils.checkpoint.save_params``) first, else the reference's
+        ``.pth`` pair named by the config, converted; with neither, random
+        weights from ``seed`` on the engine's device."""
+        if self.model_dir is not None:
+            npz_gpt = self.model_dir / "gpt.npz"
+            npz_bv = self.model_dir / "bigvgan.npz"
+            if npz_gpt.exists() and npz_bv.exists():
+                return {"gpt": load_npz_params(npz_gpt),
+                        "bigvgan": load_npz_params(npz_bv)}
+            pth_gpt = self.model_dir / self.cfg.gpt_checkpoint
+            pth_bv = self.model_dir / self.cfg.bigvgan_checkpoint
+            if pth_gpt.exists() and pth_bv.exists():
+                return {
+                    "gpt": convert.convert_unified_voice(
+                        convert.load_torch_state_dict(str(pth_gpt)),
+                        layers=self.gpt_cfg.layers,
+                        cond_blocks=self.gpt_cfg.cond_num_blocks),
+                    "bigvgan": convert.convert_bigvgan(
+                        convert.load_torch_state_dict(str(pth_bv)),
+                        num_upsamples=self.bigvgan_cfg.num_upsamples,
+                        num_kernels=self.bigvgan_cfg.num_kernels),
+                }
+        gen = torch.Generator(self.device).manual_seed(seed)
+        return weights.init(self.cfg, gen, self.device)
+
     def _load_tokenizer(self):
         if self.model_dir is not None:
             bpe = self.model_dir / self.cfg.bpe_model
