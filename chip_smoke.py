@@ -22,6 +22,10 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
              plain version, its bound and (for the permutes) a library gather;
              K2 also beside the six convs of its plain version (convs_ms)
              and the bound of its three-pass TF32 arithmetic (bound_tc_ms).
+             k2-widths: K2 against its plain version at C in K2_WIDTHS (2 …
+             128, each run on its padded width) × k in (3, 7, 11), float32
+             and bfloat16, 2 windows of 4700 samples, timed in float32
+             beside its plain version; C = 129 must raise.
 4. main    - full-width EngineConfig(), bf16 random weights from seed 0, a
              3 s numpy prompt. Three paths, each with every launch count set
              to 0 just before it and read just after:
@@ -94,12 +98,36 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
                          pairwise, no silent segment.
              Random weights never emit the stop token, so every candidate has
              the same length: which one wins is not checked.
-
+6. slice 8 - each path with every launch count set to 0 just before it and
+             K1 and K2 required after it (trace runs last, after the
+             surfaces):
+             small/infer_fast - tests/test_engine.py's small_config() on the
+                         card in float32: K2 at every stage width (64 … 2),
+                         the one-program wav within VOCODER_TOL of the exact
+                         route over the same latents;
+             int8        - IndexTTS(quantize="int8") on the bf16 weights
+                         beside the bf16 engine, one infer_fast each at cap
+                         200 in turns (bf16, int8, int8, bf16): ms a step,
+                         bytes, equal tokens (printed, not asserted);
+             continuous  - infer_batch(continuous=True, cb_slots=8) on 12
+                         sentences of 4 texts at cap 200 beside
+                         infer_batch(num_beams=1); the ContinuousBatcher with
+                         caps from 40 to 200 (refills, occupancy); float32
+                         greedy rows against decode.generate (equal, or a
+                         near-tie under GAP_TOL);
+             legacy-cond - a full-width v1.0 tree: float32 get_conditioning
+                         on the card within 1e-3 relative of the CPU's, one
+                         bf16 infer_fast at cap 100;
+             trace       - one request's gpt_gen split by stage; then 32
+                         decode steps of the BN 12 and the BN 3 beam request,
+                         plain and under utils.profiling.trace: device busy
+                         time, idle share, ms a step, top-10 device ops.
 Then one JSON line describing the kernels and, last, the device line.
 Float32 convs and products run without TF32 throughout (set below), so the
 plain versions are float32 references.
 """
 import argparse
+import contextlib
 import faulthandler
 import gc
 import json
@@ -125,17 +153,20 @@ from index_tts_dubbing_tpu_torch.dubbing import engines as dub_engines
 from index_tts_dubbing_tpu_torch.dubbing import strategies as dub_strategies
 from index_tts_dubbing_tpu_torch.dubbing.audio_processor import AudioProcessor
 from index_tts_dubbing_tpu_torch.dubbing.srt_parser import SRTParser
+from index_tts_dubbing_tpu_torch.engine import continuous as cb
 from index_tts_dubbing_tpu_torch.engine import decode as decode_mod
 from index_tts_dubbing_tpu_torch.engine import tts as tts_mod
 from index_tts_dubbing_tpu_torch.engine import vocoder as voc_mod
 from index_tts_dubbing_tpu_torch.engine.tts import IndexTTS
 from index_tts_dubbing_tpu_torch.models import bigvgan as bigvgan_mod
+from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
+from index_tts_dubbing_tpu_torch.models import legacy_cond
 from index_tts_dubbing_tpu_torch.ops import cuda_lib
 from index_tts_dubbing_tpu_torch.ops import permute
 from index_tts_dubbing_tpu_torch.ops import resblock_cmajor as k2
 from index_tts_dubbing_tpu_torch.ops import snake_clast as b3
 from index_tts_dubbing_tpu_torch.ops import snake_cmajor as k1
-from index_tts_dubbing_tpu_torch.utils import checkpoint
+from index_tts_dubbing_tpu_torch.utils import checkpoint, profiling
 from index_tts_dubbing_tpu_torch.utils.audio import write_wav
 
 WATCHDOG_S = 900
@@ -260,6 +291,16 @@ def k2_convs(c: int, t: int, k: int):
     return convs
 
 
+def rand_resblock(rand, c: int, k: int) -> dict:
+    """A resblock's random weights at the checks' scale (weights and biases
+    N(0, 1)·0.1, α and β N(0, 1)·0.3), drawn by ``rand``."""
+    conv = lambda: {"w": rand(k, c, c) * 0.1, "b": rand(c) * 0.1}
+    return {"convs1": [conv() for _ in range(3)],
+            "convs2": [conv() for _ in range(3)],
+            "acts": [{"alpha": rand(c) * 0.3, "beta": rand(c) * 0.3}
+                     for _ in range(6)]}
+
+
 def check_kernels(gen: torch.Generator):
     """Each kernel vs its plain version at the main-path shapes; returns
     per-kernel timings (float32, one window batch) and errors."""
@@ -311,12 +352,8 @@ def check_kernels(gen: torch.Generator):
                     2 * n * es + 8 * c, n * ACT_OPS)
             out["snake_clast"].append(row)
         for c, t, k in K2_SHAPES:
-            conv = lambda: {"w": rand(k, c, c) * 0.1, "b": rand(c) * 0.1}
-            rb = {"convs1": [conv() for _ in range(3)],
-                  "convs2": [conv() for _ in range(3)],
-                  "acts": [{"alpha": rand(c) * 0.3, "beta": rand(c) * 0.3}
-                           for _ in range(6)]}
-            w = k2.pack_resblock(rb, EngineConfig().bigvgan, dt)
+            w = k2.pack_resblock(rand_resblock(rand, c, k),
+                                 EngineConfig().bigvgan, dt)
             x = (rand(WINDOW_BATCH, c, t) * 0.5).to(dt)
             ref = k2.resblock_cmajor_plain(x, *w, k, DILS).float()
             got = k2.resblock_cmajor(x, *w, k, DILS).float()
@@ -351,6 +388,56 @@ def check_kernels(gen: torch.Generator):
             out["resblock_cmajor"].append(row)
         del x, ref, got
     return out
+
+
+# K2 at every width class it is built for and between them (C is padded to
+# the next of k2.KERNEL_WIDTHS), at two windows of a ragged length
+K2_WIDTHS = (2, 4, 8, 16, 24, 32, 40, 48, 64, 72, 96, 128)
+K2_WIDTH_T = 4700
+
+
+def check_k2_widths(gen: torch.Generator) -> list:
+    """K2 against its plain version at every C of K2_WIDTHS × k in (3, 7,
+    11), float32 and bfloat16, within TOL; float32 timed beside the plain
+    version and its bound. C = 129 must raise."""
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dt).element_size()
+        for c in K2_WIDTHS:
+            for k in (3, 7, 11):
+                w = k2.pack_resblock(rand_resblock(rand, c, k),
+                                     EngineConfig().bigvgan, dt)
+                x = (rand(2, c, K2_WIDTH_T) * 0.5).to(dt)
+                ref = k2.resblock_cmajor_plain(x, *w, k, DILS).float()
+                got = k2.resblock_cmajor(x, *w, k, DILS).float()
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                lim = TOL[dt] * max(1.0, ref.abs().max().item())
+                if not err <= lim:
+                    raise AssertionError(f"K2 {dt} C={c} k={k}: err {err} > {lim}")
+                row = {"dtype": str(dt), "C": c, "Cp": k2.kernel_width(c),
+                       "T": K2_WIDTH_T, "k": k, "B": 2, "max_abs_err": err,
+                       "tol": lim, "tt": k2.pick_tile(c, k, DILS, K2_WIDTH_T)}
+                if dt == torch.float32:
+                    row["ms"] = cuda_ms(lambda: k2.resblock_cmajor(x, *w, k, DILS), 5)
+                    row["plain_ms"] = cuda_ms(
+                        lambda: k2.resblock_cmajor_plain(x, *w, k, DILS), 3)
+                    n = 2 * c * K2_WIDTH_T
+                    nbytes = 2 * n * es + sum(p.numel() * p.element_size()
+                                              for p in w)
+                    row["bound_ms"], row["bound_by"] = bound_ms(
+                        nbytes, 2 * K2_WIDTH_T * 6 * 2 * c * c * k
+                        + 6 * n * ACT_OPS)
+                rows.append(row)
+    x = torch.zeros(1, 129, 64, device="cuda")
+    try:
+        k2.resblock_cmajor(x, x, x, x, x, x, 3, DILS)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K2 took C = 129")
+    return rows
 
 
 # untimed cases off the main path's shapes, each within TOL of the plain
@@ -1245,6 +1332,379 @@ def run_dubbing_adaptive(model_dir: Path, prompt: str) -> tuple:
                     "launches": {k: v for k, v in counts.items() if v}}
 
 
+# ------------------------------------------------ slice 8: the new paths
+
+# tests/test_engine.py's small_config(): BigVGAN stages of 64 … 2 channels,
+# every one on K2 at a padded width
+SMALL_GPT = dict(model_dim=64, layers=2, heads=4, max_mel_tokens=60,
+                 max_text_tokens=50, number_text_tokens=120,
+                 cond_output_size=32, cond_linear_units=64,
+                 cond_attention_heads=4, cond_num_blocks=2)
+SMALL_BV = dict(gpt_dim=64, upsample_initial_channel=128)
+# four texts of 1, 2, 4 and 5 sentences (12 rows at CB_SPLIT tokens a
+# sentence) for continuous batching
+CB_TEXTS = [
+    "A single short line.",
+    "Two lines now. The second one ends here.",
+    "Four lines here. Each of them is short. The third follows. And the "
+    "last one ends the text.",
+    "Five lines close the set. They run one after another. A slot frees "
+    "when a line ends. The next line takes it. That is continuous batching.",
+]
+CB_SPLIT = 30
+CB_CAP = 200
+TRACE_STEPS = 32            # decode steps inside each traced window
+TRACE_FROM = 64             # the trunk call that opens the window
+TRACE_CAP = 160
+GAP_TOL = 1e-4              # top-2 logit gap, relative, that counts as a tie
+
+
+def run_small(prompt: str):
+    """small_config() on the card in float32: one infer_fast on the
+    one-program route, K2 launched at every C ≤ 128 stage (64 … 2, padded
+    to 64, 32, 16, 8, 8, 8), its wav within VOCODER_TOL of the exact route
+    over the same latents."""
+    cfg = EngineConfig(gpt=replace(EngineConfig().gpt, **SMALL_GPT),
+                       bigvgan=replace(EngineConfig().bigvgan, **SMALL_BV))
+    tts = IndexTTS(config=cfg, seed=0, verbose_init=False)
+    widths = []
+    real = voc_mod.resblock_cmajor
+
+    def recording(x, *args, **kwargs):
+        widths.append(x.shape[1])
+        return real(x, *args, **kwargs)
+
+    text = f"{TEXTS[0]} {TEXTS[1]}"
+    voc_mod.resblock_cmajor = recording
+    try:
+        (sr, wav), counts, rep = run_path(tts, lambda: tts.infer_fast(
+            prompt, text, max_text_tokens_per_sentence=40, max_mel_tokens=60))
+    finally:
+        voc_mod.resblock_cmajor = real
+    expect("small/infer_fast", tts, "fused", "fused")
+    stages = [cfg.bigvgan.stage_channels(i)
+              for i in range(cfg.bigvgan.num_upsamples)]
+    if sorted(set(widths), reverse=True) != stages or max(stages) > 128:
+        raise AssertionError(f"small: K2 ran at {sorted(set(widths))}, "
+                             f"stages {stages}")
+    res, voc = tts.last_fused_res, tts.vocoder
+    lens = res.lens.cpu().numpy()
+    t = int(res.stream_frames)
+    if not t >= voc.window + 2 * voc.halo:
+        raise AssertionError(f"small: {t} frames take the short fallback")
+    check_audio("small", sr, wav, lens.sum(), voc.upsample)
+    stream = torch.cat([res.lat[i, :lens[i]] for i in range(len(lens))])
+    spk = tts._speaker(tts._cond_mel(prompt))
+    exact = voc_mod._vocode_window_cmajor(
+        tts.params["bigvgan"], tts.bigvgan_cfg, stream[None].float(), spk,
+        use_kernels=False)[0].cpu().numpy()
+    got = res.wav[: t * voc.upsample].cpu().numpy()
+    err = float(np.abs(got - exact).max())
+    if not err <= VOCODER_TOL:
+        raise AssertionError(f"small vs exact: {err} > {VOCODER_TOL}")
+    rep.update(stages=stages, k2_widths=sorted(set(widths), reverse=True),
+               k2_padded=[k2.kernel_width(c) for c in stages],
+               stream_frames=t, vs_exact=err)
+    return counts, rep
+
+
+def tree_bytes(tree) -> int:
+    return sum(v.numel() * v.element_size() for v in leaves(tree).values())
+
+
+def run_int8(tts: IndexTTS, prompt: str):
+    """IndexTTS(quantize="int8") on the bf16 engine's weights beside the
+    bf16 engine: one infer_fast at the reference's defaults and cap 200 on
+    each, in turns (bf16, int8, int8, bf16), every run from one generator
+    seed; ms a step, the trees' bytes and the share of equal tokens
+    (printed, not asserted)."""
+    q = IndexTTS(config=tts.cfg, is_fp16=True, params=tts.params,
+                 quantize="int8", verbose_init=False)
+    blk = q.params["gpt"]["blocks"][0]["attn"]["qkv"]
+    if blk["w_q"].dtype != torch.int8 or blk["scale"].dtype != torch.float32:
+        raise AssertionError("int8: the trunk is not quantised")
+    matmuls = lambda g: [g["mel_head"]] + [b[grp][n] for b in g["blocks"]
+                                            for grp, names in (
+                                                ("attn", ("qkv", "proj")),
+                                                ("mlp", ("fc", "proj")))
+                                            for n in names]
+    runs = {"bf16": [], "int8": []}
+    total = {name: 0 for name in COUNTED}
+    codes = {}
+    for name, eng in (("bf16", tts), ("int8", q), ("int8", q), ("bf16", tts)):
+        eng._generator.manual_seed(5)
+        _, counts, rep = run_path(eng, lambda: eng.infer_fast(
+            prompt, TEXTS[1], max_mel_tokens=CB_CAP))
+        expect(f"int8/{name}", eng, "fused", "fused")
+        runs[name].append(rep)
+        codes.setdefault(name, eng.last_fused_res.codes[:1].cpu())
+        if name == "int8":
+            total = {k: total[k] + counts[k] for k in total}
+    same = codes["bf16"] == codes["int8"]
+    out = {"runs": runs,
+           "ms_per_step": {k: [r["gpt_gen_ms_per_step"] for r in v]
+                           for k, v in runs.items()},
+           "gpt_bytes": {"bf16": tree_bytes(tts.params["gpt"]),
+                         "int8": tree_bytes(q.params["gpt"])},
+           "matmul_bytes": {"bf16": tree_bytes(matmuls(tts.params["gpt"])),
+                            "int8": tree_bytes(matmuls(q.params["gpt"]))},
+           "equal_tokens": int(same.sum()), "of": same.numel()}
+    del q
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, out
+
+
+def processed_logits_at(params, cfg, sc, emb, keep, codes, step):
+    """``generate``'s processed logits for one row at decode ``step``,
+    teacher-forced on that row's ``codes``."""
+    s0 = emb.shape[1]
+    dev = emb.device
+    cache = gpt_model.init_cache(cfg, 1, s0 + step + 1, emb.dtype, dev)
+    h = gpt_model.trunk_prefill(params, cfg, emb, keep, cache)
+    kk = torch.cat([keep, torch.zeros((1, step + 1), dtype=torch.bool,
+                                      device=dev)], dim=1)
+    seen = torch.zeros((1, cfg.number_mel_codes), dtype=torch.bool, device=dev)
+    seen[:, sc.fake_prefix_id] = True
+    seen[:, cfg.start_mel_token] = True
+    for j in range(1, step + 1):
+        tok = int(codes[j - 1])
+        seen[0, tok] = True
+        e = (params["mel_emb"]["w"][tok] + params["mel_pos"]["w"][j + 1]
+             ).to(emb.dtype)[None]
+        kk[:, s0 + j - 1] = True
+        h = gpt_model.trunk_decode_step(params, cfg, e, cache, s0 + j - 1, kk)
+    return decode_mod._process_logits(
+        gpt_model.mel_logits_from_hidden(params, h), seen, sc)[0]
+
+
+def cb_vs_generate(tts: IndexTTS, conds, rows) -> dict:
+    """Float32 greedy: continuous batching (2 slots, so slots refill) row for
+    row against ``generate`` on each row alone, at cap 64, TF32 off. A
+    differing row must differ at a near-tie of ``generate``'s logits (top-2
+    gap under GAP_TOL relative)."""
+    cfg = tts.gpt_cfg
+    p32 = weights.cast_floating(tts.params["gpt"], torch.float32)
+    c32 = conds.float()
+    sc = replace(tts._sampling_config({}), do_sample=False, max_mel_tokens=64)
+    batcher = cb.ContinuousBatcher(p32, cfg, sc, c32, batch=2,
+                                   text_buckets=tts.TEXT_BUCKETS)
+    got = batcher.run([cb.CBRequest(uid=i, text_ids=r)
+                       for i, r in enumerate(rows)], dtype=torch.float32)
+    out = {"rows": len(rows), "steps": 64, "refills": batcher.stats["refills"],
+           "equal_rows": 0, "ties": []}
+    for i, r in enumerate(rows):
+        pad_to = next((b for b in tts.TEXT_BUCKETS if b >= r.size), r.size)
+        pre = decode_mod.prepare_prefix_host(cfg, [r], pad_to=pad_to)
+        t = lambda k: torch.as_tensor(pre[k].astype(np.int64), device="cuda")
+        emb, keep = decode_mod.build_prefix_emb(p32, cfg, c32, t("ids"),
+                                                t("pos"), t("seg"),
+                                                t("cond_idx"))
+        ref = decode_mod.generate(p32, cfg, sc, emb, keep)
+        ref_codes = ref.codes[0].cpu().numpy()
+        codes, ln = got[i]
+        n = min(ln, int(ref.lengths[0]))
+        diff = np.nonzero(codes[:n] != ref_codes[:n])[0]
+        if ln == int(ref.lengths[0]) and not diff.size:
+            out["equal_rows"] += 1
+            continue
+        step = int(diff[0]) if diff.size else n
+        top = torch.topk(processed_logits_at(p32, cfg, sc, emb, keep,
+                                             ref_codes, step), 2).values
+        gap = float((top[0] - top[1]) / top[0].abs().clamp_min(1e-30))
+        out["ties"].append({"row": i, "step": step, "gap": gap})
+        if not gap < GAP_TOL:
+            raise AssertionError(f"continuous row {i} differs from generate "
+                                 f"at step {step}, top-2 gap {gap}")
+    del p32
+    return out
+
+
+def run_continuous(tts: IndexTTS, prompt: str):
+    """infer_batch(continuous=True, cb_slots=8) on CB_TEXTS (12 sentences)
+    beside infer_batch(num_beams=1) on the same texts (both sample per
+    row); then the ContinuousBatcher with per-request caps from 40 to 200;
+    then the float32 greedy check against generate."""
+    n_sent = [len(tts.sentence_rows(t, CB_SPLIT)) for t in CB_TEXTS]
+    if sum(n_sent) != 12:
+        raise AssertionError(f"continuous: sentences {n_sent}")
+    out, total = {}, {name: 0 for name in COUNTED}
+    for name, kw, path in (("continuous", dict(continuous=True, cb_slots=8),
+                            "staged"),
+                           ("batch", dict(num_beams=1), "fused")):
+        outs, counts, rep = run_path(tts, lambda: tts.infer_batch(
+            prompt, CB_TEXTS, max_mel_tokens=CB_CAP,
+            max_text_tokens_per_sentence=CB_SPLIT, **kw))
+        expect(f"continuous/{name}", tts, path, "fused" if path == "fused"
+               else None)
+        frames = tts.last_sentence_frames
+        bounds = np.cumsum([0] + n_sent)
+        for ti, (sr, wav) in enumerate(outs):
+            check_audio(f"continuous/{name} text {ti}", sr, wav,
+                        frames[bounds[ti]: bounds[ti + 1]].sum(),
+                        tts.vocoder.upsample)
+        if name == "continuous":
+            rep["cb_stats"] = tts.last_cb_stats
+            check_finite("continuous", tts.last_wav)
+        out[name] = rep
+        total = {k: total[k] + counts[k] for k in total}
+
+    rows = [r for t in CB_TEXTS for r in tts.sentence_rows(t, CB_SPLIT)]
+    caps = [int(c) for c in np.linspace(40, CB_CAP, len(rows))]
+    sc = tts._sampling_config(dict(num_beams=1, max_mel_tokens=CB_CAP))
+    conds = tts._conditioning(tts._cond_mel(prompt))
+    batcher = cb.ContinuousBatcher(tts.params["gpt"], tts.gpt_cfg, sc, conds,
+                                   batch=8, text_buckets=tts.TEXT_BUCKETS,
+                                   generator=tts._generator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = batcher.run([cb.CBRequest(uid=i, text_ids=r, max_new=c)
+                       for i, (r, c) in enumerate(zip(rows, caps))],
+                      dtype=tts.dtype)
+    wall = time.perf_counter() - t0
+    lens = [res[i][1] for i in range(len(rows))]
+    if any(not 0 <= ln <= c for ln, c in zip(lens, caps)):
+        raise AssertionError(f"continuous caps {caps}, lengths {lens}")
+    st = batcher.stats
+    out["batcher"] = dict(st, caps=caps, lengths=lens, wall_s=wall,
+                          ms_per_step=1e3 * wall / max(st["steps"], 1))
+    out["float32_vs_generate"] = cb_vs_generate(tts, conds, rows[:4])
+    return total, out
+
+
+def run_legacy_cond(tts: IndexTTS, prompt: str):
+    """A full-width v1.0 tree (the legacy encoder: 6 attention blocks of 16
+    heads, random proj and one block's relative positions; the perceiver
+    over 1024-wide contexts) on the bf16 engine's other weights: its float32
+    get_conditioning on the card within 1e-3 relative of the CPU's, then one
+    infer_fast at cap 100 on a bf16 engine."""
+    g = tts.gpt_cfg
+    cfg = replace(tts.cfg, gpt=replace(g, condition_type="perceiver",
+                                       cond_num_blocks=6))
+    r = weights.Init(torch.Generator("cuda").manual_seed(7), "cuda")
+    d = g.model_dim
+    cond = legacy_cond.init(r, 100, d, 6, g.heads)
+    for blk in cond["blocks"]:
+        blk["proj"] = {"w": r.normal((1, d, d)), "b": r.normal((d,))}
+    cond["blocks"][0]["rel_pos"] = {"emb": {"w": r.normal((32, g.heads), 0.5)}}
+    v1 = {"cond_encoder": cond,
+          "perceiver": weights.init_perceiver(r, d, d, g.condition_num_latent,
+                                              64, g.cond_attention_heads,
+                                              g.perceiver_mult)}
+    mel = tts._cond_mel(prompt).transpose(1, 2).float()
+    lens = torch.tensor([mel.shape[1]])
+    card = gpt_model.get_conditioning(v1, cfg.gpt, mel, lens.cuda()).cpu()
+    cpu = gpt_model.get_conditioning(weights.from_jax_params(v1, "cpu"),
+                                     cfg.gpt, mel.cpu(), lens)
+    rel = float((card - cpu).abs().max() / cpu.abs().max())
+    if not rel <= 1e-3:
+        raise AssertionError(f"legacy-cond: card vs CPU {rel} relative")
+    params = {"gpt": dict(tts.params["gpt"], **v1),
+              "bigvgan": tts.params["bigvgan"]}
+    eng = IndexTTS(config=cfg, is_fp16=True, params=params, verbose_init=False)
+    (sr, wav), counts, rep = run_path(eng, lambda: eng.infer_fast(
+        prompt, TEXTS[1], max_mel_tokens=100))
+    expect("legacy-cond", eng, "fused", "fused")
+    check_audio("legacy-cond", sr, wav, eng.last_sentence_frames.sum(),
+                eng.vocoder.upsample)
+    rep.update(conditioning_card_vs_cpu=rel, cond_blocks=6, heads=g.heads)
+    del eng
+    return counts, rep
+
+
+def run_trace(tts: IndexTTS, prompt: str, tmp: Path) -> dict:
+    """One request's gpt_gen split into conditioning, prefill + decode, trim
+    and latent pass, stage by stage. Then TRACE_STEPS decode steps (from
+    trunk call TRACE_FROM of a TRACE_CAP-step beam decode, so the gen cache
+    is the request's own) of the BN 12 request and of a BN 3 one, each
+    window once plain and once under profiling.trace: the device busy time
+    (the union of device intervals in the trace), the idle share over the
+    traced window's wall and over the plain window's, ms a step of both,
+    and the top-10 device ops."""
+    params, cfg = tts.params["gpt"], tts.gpt_cfg
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        return val, time.perf_counter() - t0
+
+    split = {}
+    tts.cache_cond_mel = None                  # the prompt's mel anew
+    cond_mel, split["cond_mel_s"] = timed(lambda: tts._cond_mel(prompt))
+    conds, split["conditioning_s"] = timed(lambda: tts._conditioning(cond_mel))
+    _, split["speaker_s"] = timed(lambda: tts._speaker(cond_mel))
+    sc = tts._sampling_config(dict(max_mel_tokens=CB_CAP))
+    x = tts.fused_batch(tts.sentence_rows(TEXTS[1]))
+
+    def decode():
+        emb, keep = decode_mod.build_prefix_emb(params, cfg, conds, x["ids"],
+                                                x["pos"], x["seg"],
+                                                x["cond_idx"])
+        return decode_mod._beam_decode(params, cfg, sc, emb, keep,
+                                       tts._generator, 3, 0.0,
+                                       stochastic=True, live=x["live"])
+    res, split["prefill_decode_s"] = timed(decode)
+    (codes, lens), split["trim_s"] = timed(
+        lambda: tts_mod.remove_long_silence_device(res.codes,
+                                                   cfg.stop_mel_token))
+    _, split["latent_s"] = timed(lambda: gpt_model.forward_latent_bucketed(
+        params, cfg, conds, x["text"], x["text_lens"], codes, lens))
+    split.update(steps=res.steps, rows=int(x["live"].sum()),
+                 ms_per_step=1e3 * split["prefill_decode_s"] / res.steps)
+    out = {"gpt_gen_split": split}
+
+    sc = replace(sc, max_mel_tokens=TRACE_CAP)
+    real = gpt_model.trunk_decode_step_split_anc
+    for name, text in (("bn12", TEXTS[2]), ("bn3", TEXTS[1])):
+        x = tts.fused_batch(tts.sentence_rows(text))
+        emb, keep = decode_mod.build_prefix_emb(params, cfg, conds, x["ids"],
+                                                x["pos"], x["seg"],
+                                                x["cond_idx"])
+        walls = {}
+        for traced in (False, True):
+            window = {"calls": 0}
+            stack = contextlib.ExitStack()
+
+            def step(*args, **kwargs):
+                window["calls"] += 1
+                if window["calls"] in (TRACE_FROM, TRACE_FROM + TRACE_STEPS):
+                    torch.cuda.synchronize()
+                    if window["calls"] == TRACE_FROM:
+                        if traced:
+                            stack.enter_context(
+                                profiling.trace(str(tmp / name)))
+                        window["t0"] = time.perf_counter()
+                    else:
+                        window["wall"] = time.perf_counter() - window["t0"]
+                        stack.close()
+                return real(*args, **kwargs)
+
+            gpt_model.trunk_decode_step_split_anc = step
+            try:
+                decode_mod._beam_decode(params, cfg, sc, emb, keep,
+                                        tts._generator, 3, 0.0,
+                                        stochastic=True, live=x["live"])
+            finally:
+                gpt_model.trunk_decode_step_split_anc = real
+                stack.close()
+            walls[traced] = window["wall"]
+        busy_us, by_name = profiling.device_activity(tmp / name /
+                                                     "trace.json")
+        busy = busy_us / 1e6
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        out[name] = {"bn": emb.shape[0] * 3, "steps": TRACE_STEPS,
+                     "window_from": TRACE_FROM, "cap": TRACE_CAP,
+                     "ms_per_step": 1e3 * walls[False] / TRACE_STEPS,
+                     "traced_ms_per_step": 1e3 * walls[True] / TRACE_STEPS,
+                     "device_busy_ms_per_step": 1e3 * busy / TRACE_STEPS,
+                     "idle_share": 1.0 - busy / walls[False],
+                     "idle_share_traced": 1.0 - busy / walls[True],
+                     "top10_device_ms": [[k[:90], v / 1e3] for k, v in top]}
+    return out
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     argparse.ArgumentParser(description=__doc__,
@@ -1276,6 +1736,12 @@ def main() -> int:
                                       if x["dtype"] == r["dtype"])
                  for r in rows} for n, rows in checks.items()}
     phase("kernels/vocoder", t0, f"max_abs_err {json.dumps(worst)}")
+    t1 = time.perf_counter()
+    k2_widths = check_k2_widths(torch.Generator("cuda").manual_seed(4))
+    phase("kernels/k2-widths", t1, json.dumps([
+        {k: r[k] for k in ("C", "Cp", "k", "tt", "max_abs_err", "ms",
+                           "plain_ms", "bound_ms")}
+        for r in k2_widths if r["dtype"] == "torch.float32"]))
     t1 = time.perf_counter()
     ragged = check_ragged(torch.Generator("cuda").manual_seed(3))
     phase("kernels/ragged", t1, "(K1 and B3 within TOL of their plain "
@@ -1346,6 +1812,18 @@ def main() -> int:
         phase("main", t0)
 
         t0 = time.perf_counter()
+        for name, run in (("small/infer_fast", lambda: run_small(prompt)),
+                          ("int8", lambda: run_int8(tts, prompt)),
+                          ("continuous", lambda: run_continuous(tts, prompt)),
+                          ("legacy-cond", lambda: run_legacy_cond(tts, prompt))):
+            t1 = time.perf_counter()
+            paths[name], report = run()
+            phase(name, t1, json.dumps(report))
+            gc.collect()
+            torch.cuda.empty_cache()
+        phase("slice8", t0)
+
+        t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as model_dir:
             model_dir = Path(model_dir)
             t1 = time.perf_counter()
@@ -1358,6 +1836,10 @@ def main() -> int:
                 paths[f"surface/{name}"], report = run(model_dir, prompt)
                 phase(f"surface/{name}", t1, json.dumps(report))
         phase("surface", t0)
+
+        # last: the profiler's tracing may slow what runs after it
+        t0 = time.perf_counter()
+        phase("trace", t0, json.dumps(run_trace(tts, prompt, Path(tmp))))
 
     by_path = lambda name: {p: c.get(name, 0) for p, c in paths.items()}
     gathers = {p: sum(c.get(fn.__name__, 0) for fn in permute.GATHERS)
@@ -1398,6 +1880,7 @@ def main() -> int:
     kernels[2]["launches_note"] = ("launches: the vocoder-ref stream "
                                    "(stream_device, 600 frames)")
     kernels[3]["launches_note"] = "launches: the beam-cof decode"
+    kernels[1]["widths"] = k2_widths
     kernels[0]["ragged"] = ragged["snake_cmajor"]
     kernels[2]["ragged"] = ragged["snake_clast"]
     kernels[4]["launches_by_path"] = gathers

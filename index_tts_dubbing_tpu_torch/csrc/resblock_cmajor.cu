@@ -1,5 +1,4 @@
-// Kernel K2: one whole AMP resblock on C-major (B, C, T), C in {24, 48, 96}
-// (the C <= 128 stages of the 1536-channel BigVGAN).
+// Kernel K2: one whole AMP resblock on C-major (B, C, T), any C <= 128.
 //
 // Replaces the Pallas TPU kernel fused_resblock_cmajor
 // (index_tts_dubbing_tpu/ops/pallas_resblock.py:175, _kernel). For each of
@@ -10,6 +9,17 @@
 // Edges: the block reads x[t0-span, t0+tt+span) with the index clamped to
 // [0, T-1] (the replicate pad), and every op then runs in valid mode, so the
 // result does not depend on the tile.
+//
+// Widths: the kernel is built for the padded widths Cp in {8, 16, 24, 32,
+// 48, 64, 96, 128} (the switch in launch_c; Plan<Cp> needs Cp % 8 == 0 and
+// Cp % kKS == 0), and a call at C runs on the smallest Cp >= C. The wrapper
+// packs the weights, the biases and the snake parameters at Cp with zeros
+// (alpha = 1/beta = 1 on the pad rows); the kernel reads only x's C rows,
+// sets the pad rows of Y to 0, and stores only the C output rows, so x and
+// out need no padded copy. The pad channels stay exactly 0 through the
+// resblock: the snake of 0 is 0, a conv of zero rows with zero weights and
+// zero bias is 0, and the residual adds 0. C = 24, 48 and 96 (the
+// 1536-channel BigVGAN's C <= 128 stages) run unpadded.
 //
 // Bound on the H100: operations. The six convs (2*C*C*k FLOPs per output
 // column each) are 93% of the work, and C*k FLOPs per byte puts them far
@@ -235,13 +245,15 @@ enum Epilogue { kInPlace, kAddToY, kToOut };
 // Valid conv of the rows of A (width n_in) with k taps at dilation d ->
 // n_in - d(k-1) columns. w: (k * cpad, C) rows kk*cpad + ci, columns co;
 // bias: (C). kInPlace writes A (left-aligned); kAddToY adds into y (row
-// stride ly); kToOut writes out[co * T_len + col] = y + conv for col < nvalid.
+// stride ly); kToOut writes out[co * T_len + col] = y + conv for col < nvalid
+// and co < c_act (the caller's rows; the rest are pad rows).
 template <typename T, int C, int E>
 __device__ __forceinline__ void conv(float* A, int lda, int n_in,
                                      const T* __restrict__ w,
                                      const float* __restrict__ bias, int k,
                                      int d, int cpad, T* ring, float* y, int ly,
-                                     T* out, int T_len, int nvalid) {
+                                     T* out, int T_len, int nvalid,
+                                     int c_act) {
   using P = Plan<C>;
   constexpr bool kSplit = std::is_same<T, float>::value;
   constexpr int kSPT = C / P::kKS;                      // stages per tap
@@ -332,7 +344,7 @@ __device__ __forceinline__ void conv(float* A, int lda, int n_in,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int co = wm * P::kMT * 16 + mt * 16 + g + 8 * h;
-        if (co >= C) continue;
+        if (co >= (E == kToOut ? c_act : C)) continue;
         const float b = bias[co];
 #pragma unroll
         for (int nt = 0; nt < P::kNT; ++nt) {
@@ -365,8 +377,8 @@ resblock_kernel(const T* __restrict__ x, T* __restrict__ out,
                 const T* __restrict__ w1, const float* __restrict__ b1,
                 const T* __restrict__ w2, const float* __restrict__ b2,
                 const float* __restrict__ acts, const float* __restrict__ filt,
-                float* scratch, int T_len, int k, int d0, int d1, int d2,
-                int tt, int cpad) {
+                float* scratch, int c_act, int T_len, int k, int d0, int d1,
+                int d2, int tt, int cpad) {
   using P = Plan<C>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int span = chain_span(k, d0, d1, d2);
@@ -387,10 +399,14 @@ resblock_kernel(const T* __restrict__ x, T* __restrict__ out,
       for (int co = C; co < P::kCM; ++co) row[co] = from_f32<T>(0.0f);
     }
   }
-  const T* xb = x + static_cast<size_t>(bi) * C * T_len;
+  const T* xb = x + static_cast<size_t>(bi) * c_act * T_len;
   for (int c = warp; c < C; c += kWarps) {
-    const T* xr = xb + static_cast<size_t>(c) * T_len;
     float* yr = Y + c * W;
+    if (c >= c_act) {             // a pad row: zero
+      for (int i = lane; i < W; i += 32) yr[i] = 0.0f;
+      continue;
+    }
+    const T* xr = xb + static_cast<size_t>(c) * T_len;
     for (int i = lane; i < W; i += 32) {
       yr[i] = to_f32<T>(xr[min(max(t0 - span + i, 0), T_len - 1)]);
     }
@@ -399,7 +415,7 @@ resblock_kernel(const T* __restrict__ x, T* __restrict__ out,
 
   const int dils[3] = {d0, d1, d2};
   const size_t wstride = static_cast<size_t>(k) * cpad * C;
-  T* ob = out + static_cast<size_t>(bi) * C * T_len + t0;
+  T* ob = out + static_cast<size_t>(bi) * c_act * T_len + t0;
   const int nvalid = min(tt, T_len - t0);
   int off = 0;        // Y's valid columns are [off, off + width)
   int width = W;
@@ -412,16 +428,16 @@ resblock_kernel(const T* __restrict__ x, T* __restrict__ out,
     act_rows<T, C>(Y + off, W, A, lda, n, ap, ap + C, filt);
     n -= 12;
     conv<T, C, kInPlace>(A, lda, n, w1 + p * wstride, b1 + p * C, k, d, cpad,
-                         ring, nullptr, 0, nullptr, 0, 0);
+                         ring, nullptr, 0, nullptr, 0, 0, c_act);
     n -= d * (k - 1);
     act_rows<T, C>(A, lda, A, lda, n, ap + 2 * C, ap + 3 * C, filt);
     n -= 12;
     if (p < 2) {
       conv<T, C, kAddToY>(A, lda, n, w2 + p * wstride, b2 + p * C, k, 1, cpad,
-                          ring, Y + off + s, W, nullptr, 0, 0);
+                          ring, Y + off + s, W, nullptr, 0, 0, c_act);
     } else {
       conv<T, C, kToOut>(A, lda, n, w2 + p * wstride, b2 + p * C, k, 1, cpad,
-                         ring, Y + off + s, W, ob, T_len, nvalid);
+                         ring, Y + off + s, W, ob, T_len, nvalid, c_act);
     }
     off += s;
     width -= 2 * s;
@@ -431,11 +447,11 @@ resblock_kernel(const T* __restrict__ x, T* __restrict__ out,
 template <typename T, int C>
 int launch(const void* x, void* out, const void* w1, const float* b1,
            const void* w2, const float* b2, const float* acts,
-           const float* filt, float* scratch, int B, int T_len, int k, int d0,
-           int d1, int d2, int tt, int cpad, cudaStream_t s) {
+           const float* filt, float* scratch, int B, int c_act, int T_len,
+           int k, int d0, int d1, int d2, int tt, int cpad, cudaStream_t s) {
   const int W = tt + 2 * chain_span(k, d0, d1, d2);
   const size_t smem = smem_bytes<T, C>(W);
-  if (tt <= 0 || cpad != (C + 31) / 32 * 32 ||
+  if (tt <= 0 || c_act < 1 || c_act > C || cpad != (C + 31) / 32 * 32 ||
       smem > static_cast<size_t>(kSmemLimit)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -453,28 +469,34 @@ int launch(const void* x, void* out, const void* w1, const float* b1,
   resblock_kernel<T, C><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(x), static_cast<T*>(out),
       static_cast<const T*>(w1), b1, static_cast<const T*>(w2), b2, acts, filt,
-      scratch, T_len, k, d0, d1, d2, tt, cpad);
+      scratch, c_act, T_len, k, d0, d1, d2, tt, cpad);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Cp: the padded width the call runs on (the wrapper's kernel_width(C)).
 template <typename T>
 int launch_c(const void* x, void* out, const void* w1, const float* b1,
              const void* w2, const float* b2, const float* acts,
-             const float* filt, float* scratch, int B, int C, int T_len, int k,
-             int d0, int d1, int d2, int tt, int cpad, cudaStream_t s) {
-  switch (C) {
-    case 24:
-      return launch<T, 24>(x, out, w1, b1, w2, b2, acts, filt, scratch, B,
-                           T_len, k, d0, d1, d2, tt, cpad, s);
-    case 48:
-      return launch<T, 48>(x, out, w1, b1, w2, b2, acts, filt, scratch, B,
-                           T_len, k, d0, d1, d2, tt, cpad, s);
-    case 96:
-      return launch<T, 96>(x, out, w1, b1, w2, b2, acts, filt, scratch, B,
-                           T_len, k, d0, d1, d2, tt, cpad, s);
+             const float* filt, float* scratch, int B, int C, int Cp,
+             int T_len, int k, int d0, int d1, int d2, int tt, int cpad,
+             cudaStream_t s) {
+#define K2_WIDTH(CP)                                                        \
+  case CP:                                                                  \
+    return launch<T, CP>(x, out, w1, b1, w2, b2, acts, filt, scratch, B, C, \
+                         T_len, k, d0, d1, d2, tt, cpad, s);
+  switch (Cp) {
+    K2_WIDTH(8)
+    K2_WIDTH(16)
+    K2_WIDTH(24)
+    K2_WIDTH(32)
+    K2_WIDTH(48)
+    K2_WIDTH(64)
+    K2_WIDTH(96)
+    K2_WIDTH(128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef K2_WIDTH
 }
 
 }  // namespace
@@ -482,8 +504,8 @@ int launch_c(const void* x, void* out, const void* w1, const float* b1,
 extern "C" int resblock_cmajor(const void* x, void* out, const void* w1,
                                const void* b1, const void* w2, const void* b2,
                                const void* acts, const void* filt,
-                               void* scratch, int B, int C, int T_len, int k,
-                               int d0, int d1, int d2, int tt, int cpad,
+                               void* scratch, int B, int C, int Cp, int T_len,
+                               int k, int d0, int d1, int d2, int tt, int cpad,
                                int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto b1f = static_cast<const float*>(b1);
@@ -492,12 +514,12 @@ extern "C" int resblock_cmajor(const void* x, void* out, const void* w1,
   auto ff = static_cast<const float*>(filt);
   auto sf = static_cast<float*>(scratch);
   if (dtype == kFloat32) {
-    return launch_c<float>(x, out, w1, b1f, w2, b2f, af, ff, sf, B, C, T_len,
-                           k, d0, d1, d2, tt, cpad, s);
+    return launch_c<float>(x, out, w1, b1f, w2, b2f, af, ff, sf, B, C, Cp,
+                           T_len, k, d0, d1, d2, tt, cpad, s);
   }
   if (dtype == kBFloat16) {
     return launch_c<__nv_bfloat16>(x, out, w1, b1f, w2, b2f, af, ff, sf, B, C,
-                                   T_len, k, d0, d1, d2, tt, cpad, s);
+                                   Cp, T_len, k, d0, d1, d2, tt, cpad, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,7 +9,9 @@ Counterpart of the JAX package's ``engine/tts.py``:
   cap above 256, the streamed vocoder, or at most 256 the static window plan
   of the one-program flavour, which emits int16 on the device), else the
   staged route (bucketed decodes, host trim, latent pass, streamed vocode);
-- ``infer_batch``: many texts at once, on either route, cut back per text.
+- ``infer_batch``: many texts at once, on either route, cut back per text;
+  with ``continuous=True`` every sentence goes through continuous-batching
+  slots (engine/continuous.py) on the staged route.
 
 Every route vocodes through the windowed C-major vocoder on kernels K1 and
 K2. The decode is the reference's default, beam sampling with
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 
 from index_tts_dubbing_tpu_torch import weights
 from index_tts_dubbing_tpu_torch.config import EngineConfig, load_config
+from index_tts_dubbing_tpu_torch.engine import continuous as cb
 from index_tts_dubbing_tpu_torch.engine import decode as decode_mod
 from index_tts_dubbing_tpu_torch.engine import fused as fused_mod
 from index_tts_dubbing_tpu_torch.engine.decode import SamplingConfig
@@ -43,6 +46,7 @@ from index_tts_dubbing_tpu_torch.utils.checkpoint import (flatten_tree,
                                                           load_params)
 from index_tts_dubbing_tpu_torch.utils.front import (TextNormalizer,
                                                      TextTokenizer)
+from index_tts_dubbing_tpu_torch.utils.quant import quantize_gpt_int8
 
 
 def remove_long_silence(codes: np.ndarray, stop_mel_token: int = 8193,
@@ -259,12 +263,20 @@ class IndexTTS:
     the C-major one on kernels K1 and K2, whatever the flag, exactly as the
     JAX engine's on its accelerator.
 
+    ``quantize="int8"``: the GPT trunk's matmuls and the mel head as
+    weight-only int8 (utils/quant.py), quantised from the weights in the
+    engine's dtype; any other mode raises ``ValueError``. A config with
+    ``condition_type == "perceiver"`` conditions through the v1.0 encoder
+    (models/legacy_cond.py).
+
     After each request: ``last_path`` ("fused" or "staged"), ``last_times``
     (StageTimes), ``last_sentence_frames`` (latent frames per sentence, in
     stream order) and ``last_wav`` (the float32 wav behind the int16 output;
     None on the one-program flavour, whose float wav stays on the device in
     ``last_fused_res.wav``); on the fused route also ``last_fused_res`` and
-    ``last_fused_flavor`` ("fused" or "fused+stream").
+    ``last_fused_flavor`` ("fused" or "fused+stream"); after
+    ``infer_batch(continuous=True)`` also ``last_cb_stats`` (steps, installs,
+    refills, occupancy).
     """
 
     TEXT_BUCKETS = (16, 32, 48, 64, 80, 96, 120)
@@ -284,8 +296,8 @@ class IndexTTS:
                  verbose_init: bool = True,
                  quantize: Optional[str] = None,
                  mesh=None, vocoder_window: Optional[int] = None):
-        if quantize is not None:
-            raise _later("int8 weight quantisation", "queue A, item 14")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode: {quantize!r}")
         if mesh is not None:
             raise _later("mesh-parallel decode", "queue A, item 14")
         self.device = torch.device(device if device is not None else "cuda")
@@ -304,6 +316,12 @@ class IndexTTS:
         if params is None:
             params = self._load_params(seed)
         self.params = weights.from_jax_params(params, self.device, self.dtype)
+        if quantize == "int8":
+            # weight-only int8 GPT trunk (utils/quant.py), quantised from the
+            # weights in the engine's dtype as JAX does; the scales stay
+            # float32, and the conditioning encoder and the embeddings stay
+            # in the engine's dtype
+            self.params["gpt"] = quantize_gpt_int8(self.params["gpt"])
         self.normalizer = TextNormalizer()
         self.normalizer.load()
         self.tokenizer = self._load_tokenizer()
@@ -449,6 +467,32 @@ class IndexTTS:
         else:
             res = decode_mod.generate(*args, self._generator)
         return res, len(token_rows)
+
+    def _decode_continuous(self, conds: torch.Tensor,
+                           token_rows: List[np.ndarray], sc: SamplingConfig,
+                           batch: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+        """Continuous-batching decode over many rows (engine/continuous.py):
+        a slot is refilled the moment its row finishes. Sampling or greedy
+        per row, whatever num_beams says, as in the JAX engine. Returns
+        (codes (n, max_len), lengths (n,)) on the host; the batcher's
+        ``stats`` stay in ``last_cb_stats``."""
+        batcher = cb.ContinuousBatcher(
+            self.params["gpt"], self.gpt_cfg, sc, conds,
+            batch=min(batch, len(token_rows)),
+            text_buckets=self.TEXT_BUCKETS, generator=self._generator)
+        results = batcher.run(
+            [cb.CBRequest(uid=i, text_ids=r) for i, r in enumerate(token_rows)],
+            dtype=self.dtype)
+        self.last_cb_stats = dict(batcher.stats, slots=batcher.batch)
+        max_len = max((ln for _, ln in results.values()), default=0)
+        codes = np.full((len(token_rows), max(max_len, 1)),
+                        self.stop_mel_token, np.int64)
+        lens = np.zeros(len(token_rows), np.int64)
+        for i in range(len(token_rows)):
+            row, ln = results[i]
+            codes[i, :ln] = row[:ln]
+            lens[i] = ln
+        return codes, lens
 
     def _bucket_dims(self, lt: int, code_len: int) -> Tuple[int, int]:
         lb = next((b for b in self.TEXT_BUCKETS if b >= lt), lt)
@@ -819,10 +863,10 @@ class IndexTTS:
         """Batched multi-utterance synthesis: every text's sentences decode
         together, on the fused route when ``_fused_eligible`` accepts them
         all, else bucketed by 8 on the staged route; the audio is cut back
-        per text. Returns [(sample_rate, int16 (T, 1))] per text."""
-        if continuous:
-            raise _later("continuous batching (infer_batch(continuous=True))",
-                         "queue A, item 14")
+        per text. ``continuous``: the staged route with every sentence
+        through ``cb_slots`` continuous-batching slots instead of the
+        buckets (sampling or greedy per row; num_beams is ignored, as in
+        the JAX engine). Returns [(sample_rate, int16 (T, 1))] per text."""
         start_time = time.perf_counter()
         times = StageTimes()
         cond_mel = self._cond_mel(audio_prompt)
@@ -844,7 +888,7 @@ class IndexTTS:
             owners += [ti] * len(sents)
 
         flat_rows = [self._ids(s) for s in flat_sents]
-        if self._fused_eligible(flat_rows):
+        if not continuous and self._fused_eligible(flat_rows):
             # sentences are contiguous per text in flat order, so each text
             # is a slice of the stream at its frame offsets
             wav, lens = self._synthesize_fused_public(conds, flat_rows, sc,
@@ -863,17 +907,32 @@ class IndexTTS:
             return outs
 
         t0 = time.perf_counter()
-        pending = []
-        for bucket in bucket_sentences(flat_sents, bucket_max_size=8):
-            rows = [self._ids(item["sent"]) for item in bucket]
-            if not rows or all(r.size == 0 for r in rows):
-                continue
-            # an empty sentence in a bucket with others decodes as one token
-            rows = [r if r.size else np.array([2], np.int32) for r in rows]
-            pending.append((bucket, rows,
-                            self._decode_batch_async(conds, rows, sc)))
         sent_ids: List[int] = []
         lat_rows: List[Tuple[np.ndarray, np.ndarray, int]] = []
+        pending = []
+        if continuous:
+            # every sentence is one request; an empty one decodes as [2]
+            rows = [r if r.size else np.array([2], np.int32)
+                    for r in flat_rows]
+            codes, _ = self._decode_continuous(conds, rows, sc, batch=cb_slots)
+            stats = self.last_cb_stats
+            times.decode = (f"{'sampling' if sc.do_sample else 'greedy'} "
+                            f"(continuous batching, {stats['slots']} slots)")
+            times.decode_steps += stats["steps"]
+            sent_ids = list(range(len(rows)))
+            lat_rows = self._latent_rows(codes, rows)
+            times.gpt_gen += time.perf_counter() - t0
+        else:
+            for bucket in bucket_sentences(flat_sents, bucket_max_size=8):
+                rows = [self._ids(item["sent"]) for item in bucket]
+                if not rows or all(r.size == 0 for r in rows):
+                    continue
+                # an empty sentence in a bucket with others decodes as one
+                # token
+                rows = [r if r.size else np.array([2], np.int32)
+                        for r in rows]
+                pending.append((bucket, rows,
+                                self._decode_batch_async(conds, rows, sc)))
         for bucket, rows, (res, n_real) in pending:
             codes = res.codes[:n_real].cpu().numpy()
             times.decode_steps += res.steps

@@ -22,7 +22,7 @@ import torch
 
 from index_tts_dubbing_tpu_torch import nn
 from index_tts_dubbing_tpu_torch.config import GPTConfig
-from index_tts_dubbing_tpu_torch.models import conformer, perceiver
+from index_tts_dubbing_tpu_torch.models import conformer, legacy_cond, perceiver
 
 Params = Dict[str, Any]
 _NEG = -1e30
@@ -262,11 +262,13 @@ def trunk_decode_step_split_anc(params: Params, cfg: GPTConfig,
 
 def get_conditioning(params: Params, cfg: GPTConfig, mel: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
-    """mel (B, T, n_mels) + lengths → conds (B, 32, model_dim)."""
-    if cfg.condition_type != "conformer_perceiver":
-        raise NotImplementedError(
-            "the v1.0 'perceiver' conditioning (models/legacy_cond.py) is not "
-            "ported yet: ROADMAP queue A, item 14")
+    """mel (B, T, n_mels) + lengths → conds (B, 32, model_dim): the
+    conformer + perceiver (v1.5), or for ``condition_type == "perceiver"``
+    the v1.0 legacy encoder + perceiver, which take no lengths."""
+    if cfg.condition_type == "perceiver":
+        x = legacy_cond.forward(params["cond_encoder"], mel, heads=cfg.heads)
+        return perceiver.forward(params["perceiver"], x, mask=None,
+                                 heads=cfg.cond_attention_heads)
     x, keep = conformer.forward(params["cond_encoder"], mel, lengths,
                                 heads=cfg.cond_attention_heads)
     ones = torch.ones((keep.shape[0], cfg.condition_num_latent),

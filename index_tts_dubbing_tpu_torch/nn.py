@@ -26,7 +26,13 @@ Padding = Union[int, Tuple[int, int]]
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = torch.matmul(x, p["w"].to(x.dtype))
+    if "w_q" in p:
+        # weight-only int8 (utils/quant.py): the int8 weight cast to x's
+        # dtype for the product, then the per-column scale on the (much
+        # smaller) output; no dequantized copy is kept
+        y = torch.matmul(x, p["w_q"].to(x.dtype)) * p["scale"].to(x.dtype)
+    else:
+        y = torch.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

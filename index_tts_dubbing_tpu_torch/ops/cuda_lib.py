@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) as one shared
 library with a plain C interface, bound with ``ctypes``.
 
-One ``nvcc`` call compiles every source for ``sm_90a`` into
+One ``nvcc`` per source, all started together, compiles every source for
+``sm_90a``; one more links the objects into
 ``_build/libkernels_<hash>.so``, where the hash covers the sources and the
-flags, so an edited source never loads a stale library. The compiler writes
+flags, so an edited source never loads a stale library. The linker writes
 to a temporary name that ``os.replace`` then moves into place: a build that
 is cut off leaves no half-written library and no lock. The first call
 builds; later calls in the process reuse the loaded library.
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -29,7 +31,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 NVCC_TIMEOUT_S = 300
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -44,10 +46,9 @@ SIGNATURES = {
     # dtype, vec, &threads_per_sm (int)
     "snake_cmajor_resident": [_I, _I, _P],
     "snake_clast_resident": [_I, _I, _P],
-    # x, out, w1, b1, w2, b2, acts, filt, scratch, B, C, T, k, d0, d1, d2,
-    # tt, cpad, dtype, stream
-    "resblock_cmajor": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _P],
+    # x, out, w1, b1, w2, b2, acts, filt, scratch, B, C, Cp, T, k, d0, d1,
+    # d2, tt, cpad, dtype, stream
+    "resblock_cmajor": [_P] * 9 + [_I] * 11 + [_P],
     # k, v, cp, L, BN, H, slab_elems, copy_elems, esize, stream
     "copy_on_fork": [_P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
     # k_in, v_in, k_out, v_out, src, L, BN, H, slab_elems, live_elems, esize,
@@ -91,18 +92,35 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=NVCC_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        tmp.unlink(missing_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as obj_dir:
+        srcs = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [str(Path(obj_dir) / f"{s.stem}.o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(srcs, objs)]
+        try:
+            for s, proc in zip(srcs, procs):
+                _, err = proc.communicate(timeout=max(
+                    1.0, NVCC_TIMEOUT_S - (time.perf_counter() - t0)))
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {s.name} "
+                                       f"({proc.returncode}):\n{err}")
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs],
+                capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):"
+                                   f"\n{link.stderr}")
+            os.replace(tmp, out)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            tmp.unlink(missing_ok=True)
     last_build_seconds = time.perf_counter() - t0
     return out
 

@@ -6,8 +6,10 @@ Replaces the Pallas kernel ``fused_resblock_cmajor``
 tile whose conv inputs and outputs stay in shared memory and registers; only
 the float32 residual stream goes to a per-block scratch, which stays in L2.
 The CUDA source is ``csrc/resblock_cmajor.cu``: convs on the tensor cores
-(float32 as three TF32 passes, ``tf32_split``), built for the C of the
-C ≤ 128 stages of the 1536-channel BigVGAN (``KERNEL_WIDTHS``).
+(float32 as three TF32 passes, ``tf32_split``), built for the padded widths
+``KERNEL_WIDTHS``: a call at C ≤ 128 runs on the smallest of them ≥ C
+(``kernel_width``), with the weights packed at that width with zeros; the
+kernel reads and writes only x's C rows, and the pad channels stay 0.
 
 Numerics, as the Pallas kernel's: activations in float32; each conv rounds
 its input to the caller's dtype and accumulates in float32 with a float32
@@ -36,7 +38,10 @@ from index_tts_dubbing_tpu_torch.ops.alias_free import (DOWN_FILTER, UP_FILTER,
 _SMEM_LIMIT = 232448      # dynamic shared memory a block may use on sm_90
 _MAX_TILE = 768
 _STAGES = 3               # depth of the kernel's weight ring
-KERNEL_WIDTHS = (24, 48, 96)   # C of the C ≤ 128 stages at 1536 channels
+# the widths K2 is built for (Cp % 8 == 0 and Cp % its weight-stage rows == 0
+# in csrc/resblock_cmajor.cu's Plan); 24, 48, 96 are the C ≤ 128 stages of
+# the 1536-channel BigVGAN, which run unpadded
+KERNEL_WIDTHS = (8, 16, 24, 32, 48, 64, 96, 128)
 
 
 def _pair_shrink(k: int, d: int) -> int:
@@ -49,6 +54,17 @@ def chain_shrink(k: int, dils: Sequence[int]) -> int:
     return sum(_pair_shrink(k, d) for d in dils)
 
 
+def kernel_width(c: int) -> int:
+    """The padded width a resblock of C channels runs on: the smallest of
+    ``KERNEL_WIDTHS`` ≥ C. C > 128 raises, as the Pallas kernel asserts."""
+    for cp in KERNEL_WIDTHS:
+        if c <= cp:
+            if c < 1:
+                break
+            return cp
+    raise ValueError(f"resblock_cmajor takes 1 <= C <= 128, got C={c}")
+
+
 def _cpad(c: int) -> int:
     """Per-tap row stride of the packed weights (the Pallas layout's
     32-aligned stride; the rows between C and Cpad are zero)."""
@@ -57,20 +73,27 @@ def _cpad(c: int) -> int:
 
 def pack_resblock(rb: Dict[str, Any], cfg, dtype
                   ) -> Tuple[torch.Tensor, ...]:
-    """One resblock's params in the kernel's layout: w1/w2 (3, k·Cpad, Cout)
-    in ``dtype``, b1/b2 (3, C, 1) float32, acts (3, 4, C, 1) float32 rows
-    [alpha1, 1/beta1, alpha2, 1/beta2] with the log-scale folded."""
+    """One resblock's params in the kernel's layout at Cp =
+    ``kernel_width(C)``: w1/w2 (3, k·Cpad, Cp) in ``dtype`` (Cpad =
+    ``_cpad(Cp)`` rows per tap), b1/b2 (3, Cp, 1) float32, acts (3, 4, Cp, 1)
+    float32 rows [alpha1, 1/beta1, alpha2, 1/beta2] with the log-scale
+    folded. Rows and columns C..Cp-1 are zero, and the pad rows of acts 1,
+    so the pad channels stay 0."""
+    c = rb["convs1"][0]["b"].shape[0]
+    cp = kernel_width(c)
+
     def flat(w):
-        k, ci, co = w.shape
-        cp = _cpad(ci)
-        if cp != ci:
-            w = F.pad(w, (0, 0, 0, cp - ci))
-        return w.reshape(k * cp, co)
+        k = w.shape[0]
+        w = F.pad(w, (0, cp - c, 0, _cpad(cp) - c))
+        return w.reshape(k * _cpad(cp), cp)
+
+    def bias(convs):
+        return F.pad(torch.stack([p["b"] for p in convs]).float(),
+                     (0, cp - c))[..., None]
 
     w1 = torch.stack([flat(p["w"]) for p in rb["convs1"]]).to(dtype)
-    b1 = torch.stack([p["b"] for p in rb["convs1"]]).float()[..., None]
     w2 = torch.stack([flat(p["w"]) for p in rb["convs2"]]).to(dtype)
-    b2 = torch.stack([p["b"] for p in rb["convs2"]]).float()[..., None]
+    b1, b2 = bias(rb["convs1"]), bias(rb["convs2"])
     rows = []
     for a1, a2 in zip(rb["acts"][::2], rb["acts"][1::2]):
         al1, al2 = a1["alpha"].float(), a2["alpha"].float()
@@ -83,7 +106,8 @@ def pack_resblock(rb: Dict[str, Any], cfg, dtype
             al2, be2 = torch.exp(al2), torch.exp(be2)
         rows.append(torch.stack([al1, 1.0 / (be1 + 1e-9),
                                  al2, 1.0 / (be2 + 1e-9)]))
-    return w1, b1, w2, b2, torch.stack(rows)[..., None].contiguous()
+    acts = F.pad(torch.stack(rows), (0, cp - c), value=1.0)
+    return w1, b1, w2, b2, acts[..., None].contiguous()
 
 
 def _act_shrink(v: torch.Tensor, a: torch.Tensor,
@@ -127,8 +151,12 @@ def _conv_shrink(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
 def resblock_cmajor_plain(x: torch.Tensor, w1, b1, w2, b2, acts, k: int,
                           dils: Sequence[int]) -> torch.Tensor:
     """What the kernel computes, edges included, in plain torch ops:
-    replicate-pad by the chain span, then every op in valid mode."""
-    y = replicate_pad(x, chain_shrink(k, dils), chain_shrink(k, dils)).float()
+    replicate-pad by the chain span, then every op in valid mode. Weights
+    packed at a width Cp above x's C (``pack_resblock``) run on x with zero
+    channels added, as the kernel does; the result is cut back to C."""
+    c, cp = x.shape[1], w1.shape[-1]
+    xp = F.pad(x, (0, 0, 0, cp - c)) if cp > c else x
+    y = replicate_pad(xp, chain_shrink(k, dils), chain_shrink(k, dils)).float()
     for p, d in enumerate(dils):
         v = _act_shrink(y, acts[p, 0], acts[p, 1])
         v = _conv_shrink(v, w1[p], b1[p], k, d, x.dtype)
@@ -136,7 +164,7 @@ def resblock_cmajor_plain(x: torch.Tensor, w1, b1, w2, b2, acts, k: int,
         v = _conv_shrink(v, w2[p], b2[p], k, 1, x.dtype)
         s = _pair_shrink(k, d)
         y = v + y[..., s: y.shape[-1] - s]
-    return y.to(x.dtype)
+    return y[:, :c].to(x.dtype)
 
 
 def _gemm_plan(c: int) -> Tuple[int, int, int]:
@@ -154,17 +182,19 @@ def _lda(w: int) -> int:
 
 
 def smem_bytes(c: int, w: int) -> int:
-    """Shared memory of one K2 block (float32 sizes): the float32
-    conv/activation buffer (C, lda) and the 3-stage weight ring."""
-    _, ks, ldw = _gemm_plan(c)
-    return 4 * c * _lda(w) + 4 * _STAGES * ks * ldw
+    """Shared memory of one K2 block at C channels (float32 sizes): the
+    float32 conv/activation buffer (Cp, lda) and the 3-stage weight ring,
+    at Cp = ``kernel_width(C)``."""
+    cp = kernel_width(c)
+    _, ks, ldw = _gemm_plan(cp)
+    return 4 * cp * _lda(w) + 4 * _STAGES * ks * ldw
 
 
 def pick_tile(c: int, k: int, dils: Sequence[int], t: int) -> int:
     """Output columns per block: the largest multiple of 32 (≤ 768, ≤ t
     rounded up) whose conv/activation buffer and weight ring fit in one
-    block's shared memory; the residual stream lives in device scratch
-    (288 at C = 96, k = 11)."""
+    block's shared memory at ``kernel_width(C)``; the residual stream lives
+    in device scratch (288 at C = 96, k = 11; 128 at C = 128, k = 11)."""
     w_halo = 2 * chain_shrink(k, dils)
     tt = min(_MAX_TILE, -(-t // 32) * 32)
     while tt >= 32 and smem_bytes(c, tt + w_halo) > _SMEM_LIMIT:
@@ -191,8 +221,9 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def resblock_cmajor(x: torch.Tensor, w1, b1, w2, b2, acts, k: int,
                     dils: Sequence[int]) -> torch.Tensor:
-    """One AMP resblock (B, C, T) → (B, C, T): kernel K2 on a CUDA tensor
-    (C in ``KERNEL_WIDTHS``), the plain version on a CPU tensor."""
+    """One AMP resblock (B, C, T) → (B, C, T), C ≤ 128, with weights from
+    ``pack_resblock``: kernel K2 on a CUDA tensor, the plain version on a
+    CPU tensor."""
     if x.device.type == "cpu":
         return resblock_cmajor_plain(x, w1, b1, w2, b2, acts, k, dils)
     if x.device.type != "cuda":
@@ -200,32 +231,30 @@ def resblock_cmajor(x: torch.Tensor, w1, b1, w2, b2, acts, k: int,
     if x.dim() != 3 or len(dils) != 3:
         raise ValueError("resblock_cmajor: x must be (B, C, T) with 3 dilations")
     b, c, t = x.shape
-    if c not in KERNEL_WIDTHS:
-        raise ValueError(f"resblock_cmajor: the kernel takes C in "
-                         f"{KERNEL_WIDTHS}, got {c}")
-    cp = _cpad(c)
+    cw = kernel_width(c)
+    cpad = _cpad(cw)
     dev = x.device
     cuda_lib.require(x, "x", dev)
     for name, wt in (("w1", w1), ("w2", w2)):
-        cuda_lib.require(wt, name, dev, x.dtype, (3, k * cp, c))
+        cuda_lib.require(wt, name, dev, x.dtype, (3, k * cpad, cw))
         if wt.data_ptr() % 16:
             raise ValueError(f"resblock_cmajor: {name} must be 16-byte aligned")
     for name, bt in (("b1", b1), ("b2", b2)):
-        cuda_lib.require(bt, name, dev, torch.float32, (3, c, 1))
-    cuda_lib.require(acts, "acts", dev, torch.float32, (3, 4, c, 1))
+        cuda_lib.require(bt, name, dev, torch.float32, (3, cw, 1))
+    cuda_lib.require(acts, "acts", dev, torch.float32, (3, 4, cw, 1))
     code = cuda_lib.dtype_code(x)
     tt = pick_tile(c, k, dils, t)
     w = tt + 2 * chain_shrink(k, dils)
     out = torch.empty_like(x)
-    # the residual stream of every block, float32 (C, tt + 2·span)
-    scratch = torch.empty(b * -(-t // tt) * c * w, device=dev,
+    # the residual stream of every block, float32 (Cp, tt + 2·span)
+    scratch = torch.empty(b * -(-t // tt) * cw * w, device=dev,
                           dtype=torch.float32)
     lib = cuda_lib.load()
     rc = lib.resblock_cmajor(
         x.data_ptr(), out.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), acts.data_ptr(),
-        cuda_lib.filter_taps(dev).data_ptr(), scratch.data_ptr(), b, c, t, k,
-        *dils, tt, cp, code, cuda_lib.stream_ptr(dev))
+        cuda_lib.filter_taps(dev).data_ptr(), scratch.data_ptr(), b, c, cw, t,
+        k, *dils, tt, cpad, code, cuda_lib.stream_ptr(dev))
     cuda_lib.check(rc, "resblock_cmajor")
     resblock_cmajor.launches += 1
     return out

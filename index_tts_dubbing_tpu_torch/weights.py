@@ -81,7 +81,7 @@ def cast_floating(tree, dtype: torch.dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-class _Init:
+class Init:
     """Random draws on one device from one generator."""
 
     def __init__(self, generator: torch.Generator, device):
@@ -132,7 +132,7 @@ class _Init:
                 "var": self.ones(c)}
 
 
-def _conformer(r: _Init, input_size: int, d: int, heads: int, units: int,
+def _conformer(r: Init, input_size: int, d: int, heads: int, units: int,
                num_blocks: int, cnn_kernel: int = 15, max_len: int = 5000) -> Params:
     dk = d // heads
     xavier = math.sqrt(6.0 / (heads * dk + dk))
@@ -166,8 +166,9 @@ def _conformer(r: _Init, input_size: int, d: int, heads: int, units: int,
     return p
 
 
-def _perceiver(r: _Init, dim: int, dim_context: int, num_latents: int,
-               dim_head: int, heads: int, ff_mult: int, depth: int = 2) -> Params:
+def init_perceiver(r: Init, dim: int, dim_context: int, num_latents: int,
+                   dim_head: int, heads: int, ff_mult: int,
+                   depth: int = 2) -> Params:
     inner = dim_head * heads
     ff_inner = int(dim * ff_mult * 2 / 3)
     return {
@@ -184,15 +185,16 @@ def _perceiver(r: _Init, dim: int, dim_context: int, num_latents: int,
     }
 
 
-def init_gpt(r: _Init, cfg: GPTConfig) -> Params:
+def init_gpt(r: Init, cfg: GPTConfig) -> Params:
     d = cfg.model_dim
     return {
         "cond_encoder": _conformer(r, 100, cfg.cond_output_size,
                                    cfg.cond_attention_heads,
                                    cfg.cond_linear_units, cfg.cond_num_blocks),
-        "perceiver": _perceiver(r, d, cfg.cond_output_size,
-                                cfg.condition_num_latent, 64,
-                                cfg.cond_attention_heads, cfg.perceiver_mult),
+        "perceiver": init_perceiver(r, d, cfg.cond_output_size,
+                                    cfg.condition_num_latent, 64,
+                                    cfg.cond_attention_heads,
+                                    cfg.perceiver_mult),
         "text_emb": {"w": r.normal((cfg.number_text_tokens + 1, d))},
         "mel_emb": {"w": r.normal((cfg.number_mel_codes, d))},
         "text_pos": {"w": r.normal((cfg.max_text_seq, d))},
@@ -212,11 +214,11 @@ def init_gpt(r: _Init, cfg: GPTConfig) -> Params:
     }
 
 
-def _tdnn(r: _Init, cin: int, cout: int, k: int) -> Params:
+def _tdnn(r: Init, cin: int, cout: int, k: int) -> Params:
     return {"conv": r.conv1d(cin, cout, k), "bn": r.batch_norm(cout)}
 
 
-def init_ecapa(r: _Init, input_size: int, lin_neurons: int) -> Params:
+def init_ecapa(r: Init, input_size: int, lin_neurons: int) -> Params:
     ch, ks, scale = ecapa.CHANNELS, ecapa.KERNELS, ecapa.RES2NET_SCALE
     blocks: list = [_tdnn(r, input_size, ch[0], ks[0])]
     for i in range(1, len(ch) - 1):
@@ -239,7 +241,7 @@ def init_ecapa(r: _Init, input_size: int, lin_neurons: int) -> Params:
     }
 
 
-def _snake(r: _Init, ch: int, cfg: BigVGANConfig) -> Params:
+def _snake(r: Init, ch: int, cfg: BigVGANConfig) -> Params:
     a = r.zeros(ch) if cfg.snake_logscale else r.ones(ch)
     p = {"alpha": a}
     if cfg.activation == "snakebeta":
@@ -247,7 +249,7 @@ def _snake(r: _Init, ch: int, cfg: BigVGANConfig) -> Params:
     return p
 
 
-def init_bigvgan(r: _Init, cfg: BigVGANConfig) -> Params:
+def init_bigvgan(r: Init, cfg: BigVGANConfig) -> Params:
     p: Params = {"conv_pre": r.conv1d(cfg.gpt_dim, cfg.upsample_initial_channel, 7),
                  "ups": [], "resblocks": [], "conds": []}
     ch_in = cfg.upsample_initial_channel
@@ -273,6 +275,6 @@ def init_bigvgan(r: _Init, cfg: BigVGANConfig) -> Params:
 def init(cfg: EngineConfig, generator: torch.Generator, device="cuda",
          dtype: torch.dtype = torch.float32) -> Params:
     """Random {"gpt", "bigvgan"} parameters for ``cfg`` on ``device``."""
-    r = _Init(generator, device)
+    r = Init(generator, device)
     params = {"gpt": init_gpt(r, cfg.gpt), "bigvgan": init_bigvgan(r, cfg.bigvgan)}
     return cast_floating(params, dtype) if dtype != torch.float32 else params

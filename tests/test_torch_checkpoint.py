@@ -8,7 +8,8 @@
   the same tree (each layout map of ``utils/convert.py`` inverted key by key,
   saved with ``torch.save``): both engines load each directory into trees
   equal leaf for leaf, equal to the tree they were written from, and a
-  greedy ``infer_fast`` decodes the same codes on both;
+  greedy ``infer_fast`` decodes the same codes on both; the same for a v1.0
+  ``gpt.pth`` (the legacy conditioning encoder);
 - a leaf whose dtype numpy cannot read (a bfloat16 array saved with
   ``ml_dtypes``) makes the port's engine raise.
 
@@ -32,6 +33,7 @@ from index_tts_dubbing_tpu_torch.utils import checkpoint
 from index_tts_dubbing_tpu_torch.utils.audio import write_wav
 from tests.test_torch_engine import (BV_SMALL, GPT_SMALL, GREEDY, SPLIT, TEXT,
                                      assert_i16_close)
+from tests.test_torch_legacy_cond import GPT_V1, v1_gpt_tree
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -92,10 +94,33 @@ def _bn(sd, pfx, p):
     sd[f"{pfx}.running_mean"], sd[f"{pfx}.running_var"] = p["mean"], p["var"]
 
 
+def legacy_cond_state_dict(sd, pfx, c):
+    """A v1.0 ConditioningEncoder's keys (Conv1d init + AttentionBlocks)."""
+    _conv(sd, pfx + "init", c["init"])
+    for i, blk in enumerate(c["blocks"]):
+        b = f"{pfx}attn.{i}"
+        _ln(sd, f"{b}.norm", blk["norm"])
+        _conv(sd, f"{b}.qkv", blk["qkv"])
+        _conv(sd, f"{b}.proj_out", blk["proj"])
+        if "rel_pos" in blk:
+            sd[f"{b}.relative_pos_embeddings.relative_attention_bias.weight"] \
+                = blk["rel_pos"]["emb"]["w"]
+
+
 def gpt_state_dict(p):
-    """gpt.pth's keys (UnifiedVoice + HF GPT2) for a JAX GPT tree."""
+    """gpt.pth's keys (UnifiedVoice + HF GPT2) for a JAX GPT tree (v1.5, or
+    v1.0 when its cond_encoder is the legacy one)."""
     sd = {}
     c, pfx = p["cond_encoder"], "conditioning_encoder."
+    if "init" in c:
+        legacy_cond_state_dict(sd, pfx, c)
+    else:
+        _conformer_state_dict(sd, pfx, c)
+    _rest_state_dict(sd, p)
+    return sd
+
+
+def _conformer_state_dict(sd, pfx, c):
     sd[pfx + "embed.conv.0.weight"] = np.transpose(c["embed"]["conv"]["w"],
                                                    (3, 2, 0, 1))
     sd[pfx + "embed.conv.0.bias"] = c["embed"]["conv"]["b"]
@@ -117,6 +142,9 @@ def gpt_state_dict(p):
         _linear(sd, f"{b}.feed_forward.w_1", blk["ff"]["w1"])
         _linear(sd, f"{b}.feed_forward.w_2", blk["ff"]["w2"])
     _ln(sd, pfx + "after_norm", c["after_norm"])
+
+
+def _rest_state_dict(sd, p):
     per, pfx = p["perceiver"], "perceiver_encoder."
     sd[pfx + "latents"] = per["latents"]
     sd[pfx + "norm.gamma"] = per["norm"]["g"]
@@ -144,7 +172,6 @@ def gpt_state_dict(p):
     _ln(sd, "final_norm", p["final_norm"])
     _linear(sd, "text_head", p["text_head"])
     _linear(sd, "mel_head", p["mel_head"])
-    return sd
 
 
 def _tdnn(sd, pfx, p):
@@ -275,6 +302,39 @@ def test_model_dir_loads_in_both_engines(tree_and_prompt, tmp_path, fmt):
     jsr, jwav = jeng.infer_fast(prompt, TEXT, **dict(kw))
     psr, pwav = peng.infer_fast(prompt, TEXT, **dict(kw))
     assert jsr == psr == 24000
+    np.testing.assert_array_equal(peng.last_fused_res.codes.numpy(),
+                                  np.asarray(jeng.last_fused_res.codes))
+    assert_i16_close(pwav, jwav)
+
+
+def test_v1_pth_loads_in_both_engines(tree_and_prompt, tmp_path):
+    """A v1.0 gpt.pth (conditioning_encoder.init.weight present: the legacy
+    encoder, one block with relative positions) loads through
+    IndexTTS(model_dir=) in both engines into equal trees, equal to the
+    tree it was written from, and a greedy infer_fast decodes the same
+    codes on both."""
+    _, prompt = tree_and_prompt
+    k1, k2 = jax.random.split(jax.random.PRNGKey(8))
+    tree = {"gpt": v1_gpt_tree(k1, GPT_V1),
+            "bigvgan": jax.tree_util.tree_map(np.asarray, jbigvgan.init(
+                k2, jbigvgan.BigVGANConfig(**BV_SMALL)))}
+    model_dir = write_model_dir(tmp_path / "v1", tree, "pth")
+    sd = torch.load(model_dir / "gpt.pth")
+    assert "conditioning_encoder.init.weight" in sd
+    jeng = JaxTTS(config=jconfig.EngineConfig(
+        gpt=jgpt.GPTConfig(**GPT_V1), bigvgan=jbigvgan.BigVGANConfig(
+            **BV_SMALL)), model_dir=str(model_dir), verbose_init=False)
+    peng = PortTTS(config=pconfig.EngineConfig(
+        gpt=pconfig.GPTConfig(**GPT_V1), bigvgan=pconfig.BigVGANConfig(
+            **BV_SMALL)), model_dir=str(model_dir), device="cpu",
+        verbose_init=False)
+    want = weights.from_jax_params(tree, device="cpu")
+    assert "init" in peng.params["gpt"]["cond_encoder"]
+    assert_trees_equal(peng.params, want)
+    assert_trees_equal(weights.from_jax_params(jeng.params, device="cpu"), want)
+    kw = dict(GREEDY, max_mel_tokens=48, **SPLIT)
+    jsr, jwav = jeng.infer_fast(prompt, TEXT, **dict(kw))
+    psr, pwav = peng.infer_fast(prompt, TEXT, **dict(kw))
     np.testing.assert_array_equal(peng.last_fused_res.codes.numpy(),
                                   np.asarray(jeng.last_fused_res.codes))
     assert_i16_close(pwav, jwav)

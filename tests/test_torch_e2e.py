@@ -143,11 +143,11 @@ def test_infer_fast_beam_search_matches_jax(engines):
     _assert_same_audio(jeng, peng, jout, pout)
 
 
-def test_requests_outside_the_slice_raise(engines):
-    """The unported beam history strategies, the off-slice constructor
-    options and continuous batching name their later slice instead of
-    running."""
-    _, _, prompt = engines
+def test_requests_outside_the_slice_raise():
+    """The unported beam history strategies and the mesh name their later
+    slice instead of running (int8, continuous batching and the v1.0
+    conditioning run now: tests/test_torch_quant.py,
+    test_torch_continuous.py, test_torch_legacy_cond.py)."""
     pcfg = pconfig.EngineConfig(gpt=pconfig.GPTConfig(**GPT_SMALL),
                                 bigvgan=pconfig.BigVGANConfig(**BV_SMALL))
     eng = PortTTS(config=pcfg, device="cpu", verbose_init=False)
@@ -157,11 +157,7 @@ def test_requests_outside_the_slice_raise(engines):
                              torch.ones(1, 3, dtype=torch.bool), None, 3, 0.0,
                              stochastic=False, reorder="split")
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 14"):
-        eng.infer_batch(prompt, [TEXT], continuous=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 14"):
         PortTTS(config=pcfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PortTTS(config=pcfg, device="cpu", quantize="int8")
 
 
 def _assert_same_tree(a, b, path="params"):

@@ -6,7 +6,10 @@ plain version it must reproduce:
   last tile) and stitching the tiles gives the whole call;
 - the float32 operand split: ``tf32_split`` mirrors ``cvt.rna.tf32.f32``,
   and three TF32 passes hold the chip's float32 tolerance on the conv chain
-  where one pass does not.
+  where one pass does not;
+- the padded widths: every C ≤ 128 maps to a width the kernel is built for,
+  and the zero-padded weights, run on zero channels and cut back to C, give
+  the unpadded computation.
 
 Inputs at chip_smoke.py's scale (weights N(0,1)·0.1, x·0.5, α and β
 N(0,1)·0.3) from a numpy seed; all math float32 unless stated.
@@ -29,7 +32,7 @@ class _Cfg:
     snake_logscale = True
 
 
-def _packed(rng, c, k):
+def _tree(rng, c, k):
     def conv():
         return {"w": torch.from_numpy(
                     (rng.standard_normal((k, c, c)) * 0.1).astype(np.float32)),
@@ -40,10 +43,13 @@ def _packed(rng, c, k):
         return {name: torch.from_numpy(
                     (rng.standard_normal(c) * 0.3).astype(np.float32))
                 for name in ("alpha", "beta")}
-    tree = {"convs1": [conv() for _ in range(3)],
+    return {"convs1": [conv() for _ in range(3)],
             "convs2": [conv() for _ in range(3)],
             "acts": [act() for _ in range(6)]}
-    return rb.pack_resblock(tree, _Cfg(), torch.float32)
+
+
+def _packed(rng, c, k):
+    return rb.pack_resblock(_tree(rng, c, k), _Cfg(), torch.float32)
 
 
 @pytest.mark.parametrize("c", rb.KERNEL_WIDTHS)
@@ -78,8 +84,13 @@ def test_tile_plan_fits_and_keeps_the_halo_small(c, k):
     w = tt + 2 * rb.chain_shrink(k, DILS)
     assert tt % 32 == 0 and rb.smem_bytes(c, w) <= rb._SMEM_LIMIT
     assert rb.smem_bytes(c, w + 32) > rb._SMEM_LIMIT or tt == rb._MAX_TILE
-    # the C = 96 stage (57% of K2's conv FLOPs) keeps tt >= 256
-    assert tt >= 256 and w / tt <= 1.75
+    if c <= 96:
+        # up to the C = 96 stage (57% of K2's conv FLOPs at 1536 channels)
+        # tt >= 256
+        assert tt >= 256 and w / tt <= 1.75
+    else:
+        # C = 128 (a 2048-channel BigVGAN): the buffer takes 128 rows
+        assert tt >= 128 and w / tt <= 2.5
 
 
 def test_tf32_split_rounds_as_cvt_rna(rng):
@@ -127,3 +138,43 @@ def test_three_tf32_passes_hold_the_float32_tolerance(rng):
             got = rb.resblock_cmajor_plain(x, *w, k, DILS)
         err[passes] = (got - ref).abs().max().item()
     assert err[3] <= lim < err[1], (err, lim)
+
+
+def test_kernel_width_covers_every_c_up_to_128():
+    for c in range(1, 129):
+        cp = rb.kernel_width(c)
+        assert cp in rb.KERNEL_WIDTHS and cp >= c
+        assert not [w for w in rb.KERNEL_WIDTHS if c <= w < cp]
+    for w in rb.KERNEL_WIDTHS:       # Plan<Cp>'s static asserts
+        assert w % 8 == 0 and w % (w if w <= 48 else 32) == 0
+    assert [rb.kernel_width(c) for c in (24, 48, 96)] == [24, 48, 96]
+    for c in (0, 129, 1536):
+        with pytest.raises(ValueError, match="C <= 128"):
+            rb.kernel_width(c)
+
+
+@pytest.mark.parametrize("c", [2, 4, 40, 72, 128])
+def test_padded_plain_equals_the_unpadded_computation(rng, c):
+    k, t = 7, 300
+    cp = rb.kernel_width(c)
+    w1, b1, w2, b2, acts = rb.pack_resblock(_tree(rng, c, k), _Cfg(),
+                                            torch.float32)
+    assert w1.shape == w2.shape == (3, k * rb._cpad(cp), cp)
+    assert b1.shape == b2.shape == (3, cp, 1) and acts.shape == (3, 4, cp, 1)
+    wr = w1.reshape(3, k, rb._cpad(cp), cp)
+    assert not wr[:, :, c:].any() and not wr[..., c:].any()
+    assert not b1[:, c:].any() and not b2[:, c:].any()
+    assert (acts[:, :, c:] == 1.0).all()       # alpha = 1, 1/beta = 1
+    x = torch.from_numpy((rng.standard_normal((2, c, t)) * 0.5)
+                         .astype(np.float32))
+    padded = rb.resblock_cmajor_plain(x, w1, b1, w2, b2, acts, k, DILS)
+    # the same weights unpadded: columns, biases and act rows cut to C
+    # (each tap keeps its _cpad rows, zero from C on)
+    unpadded = rb.resblock_cmajor_plain(
+        x, w1[..., :c].contiguous(), b1[:, :c], w2[..., :c].contiguous(),
+        b2[:, :c], acts[:, :, :c], k, DILS)
+    assert padded.shape == unpadded.shape == x.shape
+    # the pad channels add exact zeros; only the conv algorithm's summation
+    # order may differ with the channel count
+    lim = 1e-6 * unpadded.abs().max().item()
+    assert (padded - unpadded).abs().max().item() <= lim

@@ -224,3 +224,56 @@ def test_dubbing_cli_stretch_from_a_model_dir(model_dir, cpu_engines,
     assert sr == 24000 and wav.size >= int(4.0 * sr)
     for start, end in ((0.0, 1.2), (1.5, 2.4), (2.6, 4.0)):
         assert np.abs(wav[int(start * sr):int(end * sr)]).max() > 0
+
+
+# ---------------------------------------------- the web UI's handlers
+
+
+def _webui_handlers(monkeypatch, webui_mod, tts):
+    """build_demo against a mocked gradio: the mock records every widget
+    call, so the handlers come back from the ``.click`` and ``.change``
+    registrations (gen_single, on_input_text_change) with the mock."""
+    from unittest import mock
+    gr = mock.MagicMock()
+    monkeypatch.setitem(sys.modules, "gradio", gr)
+    webui_mod.build_demo(tts)
+    gen_single = gr.Button.return_value.click.call_args.args[0]
+    on_change = gr.TextArea.return_value.change.call_args.args[0]
+    return gr, gen_single, on_change
+
+
+def test_webui_handlers_match_jax(model_dir, monkeypatch):
+    """The web UI's two handlers run on the small engine of each package:
+    the sentence preview rows equal, and gen_single's int16 wav within
+    2 LSB in both infer modes (greedy, num_beams 1, cap 16)."""
+    from index_tts_dubbing_tpu import webui as jwebui
+    from index_tts_dubbing_tpu.engine.tts import IndexTTS as JaxTTS
+    from index_tts_dubbing_tpu_torch import webui as pwebui
+    from index_tts_dubbing_tpu_torch.utils.i18n import I18nAuto
+    d, _ = model_dir
+    cfg = str(d / "config.yaml")
+    jtts = JaxTTS(cfg_path=cfg, model_dir=str(d), verbose_init=False)
+    ptts_ = ptts.IndexTTS(cfg_path=cfg, model_dir=str(d), device="cpu",
+                          verbose_init=False)
+    text = "Hello there friend. The quick brown fox jumps over the dog!"
+    previews, wavs = [], []
+    for webui_mod, tts in ((jwebui, jtts), (pwebui, ptts_)):
+        gr, gen_single, on_change = _webui_handlers(monkeypatch, webui_mod,
+                                                    tts)
+        on_change(text, 20)
+        previews.append(gr.update.call_args.kwargs["value"])
+        on_change("   ", 20)
+        assert gr.update.call_args.kwargs["value"] == []
+        out = []
+        for mode in ("standard", "batch"):
+            sr, wav = gen_single(str(d / "voice.wav"), text, I18nAuto()(mode),
+                                 20, 4, False, 0.8, 30, 1.0, 0.0, 1, 10.0, 16)
+            assert sr == 24000 and wav.dtype == np.int16 and wav.size
+            out.append(wav)
+        assert tts.gr_progress is not None        # the handler's progress
+        wavs.append(out)
+    assert previews[0] == previews[1] and len(previews[1]) >= 2
+    for jwav, pwav in zip(*wavs):
+        assert pwav.shape == jwav.shape
+        diff = np.abs(pwav.astype(np.int32) - jwav.astype(np.int32))
+        assert diff.max() <= 2, diff.max()

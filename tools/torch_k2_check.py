@@ -11,7 +11,8 @@ The first form prints nvidia-smi's name and power limit, ptxas's lines for
 every K2 instantiation (registers, stack, spills), and one JSON line per
 case: K2 against its plain version at the nine shapes of one vocoder
 window batch and at ragged ones, in float32 and bfloat16, with the float32
-time beside the plain version's at the nine shapes. It exits non-zero if
+time beside the plain version's at the nine shapes, then chip_smoke.py's
+``check_k2_widths`` (every padded width class, timed). It exits non-zero if
 any case is outside chip_smoke.py's TOL.
 
 ``--variants`` shows where K2's time goes: its float32 time per window
@@ -56,9 +57,8 @@ def ptxas_report() -> str:
     """ptxas -v for resblock_cmajor.cu alone, compiled as the library is."""
     from index_tts_dubbing_tpu_torch.ops import cuda_lib
     src = cuda_lib.CSRC_DIR / "resblock_cmajor.cu"
-    flags = [f for f in cuda_lib.NVCC_FLAGS if f != "-shared"]
-    cmd = [cuda_lib._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", "/dev/null",
-           str(src)]
+    cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+           "-o", "/dev/null", str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=cuda_lib.NVCC_TIMEOUT_S)
     if proc.returncode != 0:
@@ -71,15 +71,12 @@ def ptxas_report() -> str:
 def inputs(gen, c, t, k, b, dt):
     """chip_smoke.py's K2 inputs: packed weights and x of (b, c, t)."""
     import torch
+    import chip_smoke as smoke
     from index_tts_dubbing_tpu_torch.config import EngineConfig
     from index_tts_dubbing_tpu_torch.ops import resblock_cmajor as k2
     rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    conv = lambda: {"w": rand(k, c, c) * 0.1, "b": rand(c) * 0.1}
-    rb = {"convs1": [conv() for _ in range(3)],
-          "convs2": [conv() for _ in range(3)],
-          "acts": [{"alpha": rand(c) * 0.3, "beta": rand(c) * 0.3}
-                   for _ in range(6)]}
-    w = k2.pack_resblock(rb, EngineConfig().bigvgan, dt)
+    w = k2.pack_resblock(smoke.rand_resblock(rand, c, k),
+                         EngineConfig().bigvgan, dt)
     return w, (rand(b, c, t) * 0.5).to(dt)
 
 
@@ -190,6 +187,8 @@ def main() -> int:
             row = check(gen, c, t, k, b, dt, timed)
             ok &= row["ok"]
             print(json.dumps(row), flush=True)
+    for row in smoke.check_k2_widths(gen):      # raises outside TOL
+        print(json.dumps(row), flush=True)
     return 0 if ok else 1
 
 

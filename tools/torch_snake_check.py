@@ -73,11 +73,10 @@ VARIANTS = {
 def ptxas_report() -> str:
     """ptxas -v for the two kernels' sources, compiled as the library is."""
     from index_tts_dubbing_tpu_torch.ops import cuda_lib
-    flags = [f for f in cuda_lib.NVCC_FLAGS if f != "-shared"]
     lines = []
     for name in ("snake_cmajor.cu", "snake_clast.cu"):
-        cmd = [cuda_lib._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
-               "/dev/null", str(cuda_lib.CSRC_DIR / name)]
+        cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v",
+               "-c", "-o", "/dev/null", str(cuda_lib.CSRC_DIR / name)]
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=cuda_lib.NVCC_TIMEOUT_S)
         if proc.returncode != 0:
