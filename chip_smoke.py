@@ -122,6 +122,34 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
                          decode steps of the BN 12 and the BN 3 beam request,
                          plain and under utils.profiling.trace: device busy
                          time, idle share, ms a step, top-10 device ops.
+7. slice 9 - after slice 8, before the surfaces; each path with every launch
+             count set to 0 just before it and read just after:
+             histories   - every beam history strategy (decode.BEAM_REORDERS,
+                         17) on the beam-cof phase's prefix at cap 64: float32
+                         beam search (the weights cast up), gen, flat,
+                         flatfull, mm and blocked asserted equal to "full",
+                         cof and cofdense to "split", the routed anc, ancfull,
+                         ancb, ancsw and ancg's agreement with "full" printed
+                         (ROADMAP C6), none, ancnone and splitnone checked
+                         for shape; then bf16 beam sampling with the
+                         reference's defaults at BN 12 and (twice, the
+                         second time in reverse order) at BN 3 on TEXTS[1],
+                         ms a step each. copy_on_fork
+                         launches once per step on cof and cofdense and
+                         nowhere else;
+             fused-window - fuse_bigvgan_params + _vocode_window_fused on one
+                         window of a sampling request's latents, the engine's
+                         vocoder weights cast to float32, beside
+                         _vocode_window, use_pallas off (within VOCODER_TOL)
+                         and on (B3 launched once, for act_post; within
+                         VOCODER_TOL EDGE_FRAMES from the ends, EDGE_TOL
+                         everywhere); ms a call of both;
+             dvae-eval   - dvae at DVAEConfig() with random weights (card
+                         codes equal the CPU's, the decoded mel within
+                         DVAE_TOL), sinc_conv card vs CPU, speaker_similarity
+                         of the prompt and the fused window's wav, and
+                         forward_latent against forward_latent_bucketed on one
+                         sentence in float32.
 Then one JSON line describing the kernels and, last, the device line.
 Float32 convs and products run without TF32 throughout (set below), so the
 plain versions are float32 references.
@@ -158,16 +186,19 @@ from index_tts_dubbing_tpu_torch.engine import decode as decode_mod
 from index_tts_dubbing_tpu_torch.engine import tts as tts_mod
 from index_tts_dubbing_tpu_torch.engine import vocoder as voc_mod
 from index_tts_dubbing_tpu_torch.engine.tts import IndexTTS
+from index_tts_dubbing_tpu_torch.eval import speaker_sim
 from index_tts_dubbing_tpu_torch.models import bigvgan as bigvgan_mod
+from index_tts_dubbing_tpu_torch.models import dvae
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
 from index_tts_dubbing_tpu_torch.models import legacy_cond
 from index_tts_dubbing_tpu_torch.ops import cuda_lib
 from index_tts_dubbing_tpu_torch.ops import permute
 from index_tts_dubbing_tpu_torch.ops import resblock_cmajor as k2
+from index_tts_dubbing_tpu_torch.ops import sinc_conv
 from index_tts_dubbing_tpu_torch.ops import snake_clast as b3
 from index_tts_dubbing_tpu_torch.ops import snake_cmajor as k1
 from index_tts_dubbing_tpu_torch.utils import checkpoint, profiling
-from index_tts_dubbing_tpu_torch.utils.audio import write_wav
+from index_tts_dubbing_tpu_torch.utils.audio import load_audio, write_wav
 
 WATCHDOG_S = 900
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -1612,6 +1643,279 @@ def run_legacy_cond(tts: IndexTTS, prompt: str):
     return counts, rep
 
 
+# slice 9: every history strategy of the beam decode, at the cap below
+HIST_CAP = 64
+# float32 beam search: strategies that must give "full"'s tokens and those
+# that must give "split"'s (the same arithmetic); the routed anc, ancfull,
+# ancb, ancsw and ancg have their agreement with "full" printed (ROADMAP C6:
+# float32 near-ties may split them), the diagnostic none, ancnone and
+# splitnone (wrong by design) are checked for shape only
+HIST_AS_FULL = ("gen", "flat", "flatfull", "mm", "blocked")
+HIST_AS_SPLIT = ("cof", "cofdense")
+# the dvae card-vs-CPU decode and the sinc conv: float32 convs of up to
+# 1024 channels in another summation order, relative to max|CPU|
+DVAE_TOL = 1e-4
+
+
+def run_histories(tts: IndexTTS, prompt: str):
+    """Every beam history strategy at cap 64, each run with every launch
+    count set to 0 just before it, in four sweeps: float32 beam search on
+    the beam-cof phase's prefix (TEXTS[2] padded to its batch bucket, one
+    dead row: BN 12; the weights cast to float32, products without TF32),
+    codes and lengths asserted equal to "full" or "split"; bf16 beam
+    sampling with the reference's defaults on the same prefix and on one
+    sentence (TEXTS[1], BN 3), each run from one seed, ms a step; the BN 3
+    sweep runs twice, the second time in reverse order (its spread). One
+    untimed decode of each cache family warms the allocator first.
+    copy_on_fork launches once per step on "cof" and "cofdense" and on no
+    other strategy; no other kernel launches in a decode. The BN 12 bf16
+    sweep's counts are the paths slice9/histories/<strategy>."""
+    params, cfg = tts.params["gpt"], tts.gpt_cfg
+    conds = tts._conditioning(tts._cond_mel(prompt))
+    p32 = weights.cast_floating(params, torch.float32)
+    sc = replace(tts._sampling_config({}), max_mel_tokens=HIST_CAP)
+    multi = tts.fused_batch(tts.sentence_rows(TEXTS[2]))
+    single = tts.fused_batch(tts.sentence_rows(TEXTS[1]))
+    sweeps = {"float32_search": (p32, False, multi, 1),
+              "bf16_sample": (params, True, multi, 1),
+              "bf16_sample_bn3": (params, True, single, 1),
+              "bf16_sample_bn3_reversed": (params, True, single, -1)}
+    runs = {}
+    for sweep, (p, stochastic, x, order) in sweeps.items():
+        emb, keep = decode_mod.build_prefix_emb(p, cfg, conds, x["ids"],
+                                                x["pos"], x["seg"],
+                                                x["cond_idx"])
+        sc_run = replace(sc, do_sample=stochastic)
+        if sweep == "float32_search":
+            for reorder in ("anc", "ancfull", "split", "full"):
+                decode_mod._beam_decode(p, cfg, replace(sc_run,
+                                                        max_mel_tokens=16),
+                                        emb, keep, None, 3, 0.0, stochastic,
+                                        reorder=reorder, live=x["live"])
+        for reorder in decode_mod.BEAM_REORDERS[::order]:
+            gen = torch.Generator("cuda").manual_seed(1)
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = decode_mod._beam_decode(p, cfg, sc_run, emb, keep, gen, 3,
+                                          0.0, stochastic=stochastic,
+                                          reorder=reorder, live=x["live"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            check_beam_result(res, cfg, sc_run, x["live"])
+            want = {name: 0 for name in COUNTED}
+            if reorder in HIST_AS_SPLIT:
+                want["copy_on_fork"] = res.steps
+            if counts != want:
+                raise AssertionError(f"histories {sweep} {reorder}: launches "
+                                     f"{counts}, want {want}")
+            runs[(sweep, reorder)] = (res, counts, wall)
+        del emb, keep
+    del p32
+    f32 = {r: runs[("float32_search", r)][0] for r in decode_mod.BEAM_REORDERS}
+    same = lambda a, b: (torch.equal(f32[a].codes, f32[b].codes)
+                         and torch.equal(f32[a].lengths, f32[b].lengths))
+    for group, ref in ((HIST_AS_FULL, "full"), (HIST_AS_SPLIT, "split")):
+        for reorder in group:
+            if not same(reorder, ref):
+                raise AssertionError(
+                    f"histories float32: {reorder} differs from {ref}: "
+                    f"{agreement(f32[reorder].codes.cpu(), f32[ref].codes.cpu())}")
+    report = {"cap": HIST_CAP,
+              "asserted_equal": {"full": list(HIST_AS_FULL),
+                                 "split": list(HIST_AS_SPLIT)},
+              "split_vs_full": agreement(f32["split"].codes.cpu(),
+                                         f32["full"].codes.cpu())}
+    paths = {}
+    for sweep, (_, _, x, _) in sweeps.items():
+        full = runs[(sweep, "full")][0].codes.cpu()
+        rep = report[sweep] = {"bn": x["ids"].shape[0] * 3}
+        for r in decode_mod.BEAM_REORDERS:
+            res, counts, wall = runs[(sweep, r)]
+            rep[r] = {"steps": res.steps, "ms_per_step": 1e3 * wall / res.steps,
+                      "vs_full": agreement(res.codes.cpu(), full),
+                      "launches": {k: v for k, v in counts.items() if v}}
+            if sweep == "float32_search":
+                rep[r]["lengths"] = res.lengths.cpu().tolist()
+            if sweep == "bf16_sample":
+                paths[f"slice9/histories/{r}"] = counts
+    del runs, f32
+    return paths, report
+
+
+def _wall_ms(fn, reps: int = 3) -> float:
+    """Host milliseconds of one synchronised ``fn()`` after a warm-up, the
+    mean of ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def run_fused_window(tts: IndexTTS, prompt: str):
+    """``fuse_bigvgan_params`` + ``_vocode_window_fused`` on one window
+    (window + 2·halo frames of a sampling request's latents) with the
+    engine's vocoder weights cast to float32, beside ``_vocode_window`` on
+    the same latent, ``use_pallas`` off and on. Off: within VOCODER_TOL.
+    On: both run B3 at act_post and the window function at every
+    activation, where B3 recomputes over replicated input near the window
+    ends: within VOCODER_TOL at least EDGE_FRAMES from the ends and
+    EDGE_TOL everywhere (as vocoder-ref). The checked fused call with
+    use_pallas launches B3 once (act_post) and no other kernel. Returns the
+    fused window's float32 wav for the eval phase."""
+    p32 = weights.cast_floating(tts.params["bigvgan"], torch.float32)
+    voc = tts.vocoder
+    frames = voc.window + 2 * voc.halo
+    tts.infer_fast(prompt, TEXTS[1], num_beams=1, max_mel_tokens=200)
+    lat = tts.last_fused_res.lat[:1, :frames].float()
+    if lat.shape[1] != frames:
+        raise AssertionError(f"fused-window: {lat.shape[1]} latent frames, "
+                             f"want {frames}")
+    spk = voc_mod.speaker_embedding(p32, tts._cond_mel(prompt).transpose(1, 2)
+                                    .float())
+    t0 = time.perf_counter()
+    fused = voc_mod.fuse_bigvgan_params(p32, tts.bigvgan_cfg)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    fused_bytes = sum(v.numel() * v.element_size()
+                      for st in fused["stages"] for v in st.values())
+    up = voc.upsample
+    inner = slice(EDGE_FRAMES * up, (frames - EDGE_FRAMES) * up)
+    out, counts = {}, None
+    for flag in (False, True):
+        bcfg = replace(tts.bigvgan_cfg, use_pallas=flag)
+        torch.cuda.synchronize()
+        zero_counts()
+        got = voc_mod._vocode_window_fused(fused, bcfg, lat, spk)
+        torch.cuda.synchronize()
+        c = read_counts()
+        want = {name: 0 for name in COUNTED}
+        want["snake_clast"] = int(flag)
+        if c != want:
+            raise AssertionError(f"fused-window use_pallas={flag}: launches "
+                                 f"{c}, want {want}")
+        if flag:
+            counts = c
+        ref = voc_mod._vocode_window(p32, bcfg, lat, spk)
+        if got.shape != (1, frames * up) or not torch.isfinite(got).all():
+            raise AssertionError(f"fused-window {tuple(got.shape)}")
+        diff = (got - ref).abs()[0]
+        whole, mid = float(diff.max()), float(diff[inner].max())
+        ok = (whole <= EDGE_TOL and mid <= VOCODER_TOL) if flag \
+            else whole <= VOCODER_TOL
+        if not ok:
+            raise AssertionError(f"fused-window use_pallas={flag} vs the "
+                                 f"window function: interior {mid}, whole "
+                                 f"{whole}")
+        out[f"use_pallas={flag}"] = {
+            "vs_window_interior": mid, "vs_window_whole": whole,
+            # random weights drive much of the wav into tanh's saturation,
+            # where both routes give exactly ±1
+            "unsaturated_share": float((ref.abs() < 0.999).float().mean()),
+            "wav_max_abs": float(ref.abs().max()),
+            "fused_ms": _wall_ms(lambda: voc_mod._vocode_window_fused(
+                fused, bcfg, lat, spk)),
+            "window_ms": _wall_ms(lambda: voc_mod._vocode_window(
+                p32, bcfg, lat, spk))}
+        if not flag:
+            wav = got[0].cpu().numpy()
+    del fused, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, wav, {"frames": frames, "fuse_s": fuse_s,
+                         "fused_stage_bytes": fused_bytes,
+                         "launches": {k: v for k, v in counts.items() if v},
+                         **out}
+
+
+def run_dvae_eval(tts: IndexTTS, prompt: str, wav: np.ndarray):
+    """dvae at DVAEConfig() with random weights from seed 0 on the
+    prompt's mel (cut to a multiple of 4 frames): the card's codes equal
+    the CPU's, the decoded mel within DVAE_TOL; sinc_conv.forward (80
+    filters of 251 taps, 16 kHz) on the card against the CPU on a second of
+    the prompt; speaker_similarity of the prompt and the fused window's
+    wav on the engine's ECAPA, in [-1, 1]; forward_latent against
+    forward_latent_bucketed in float32 on one sentence of TEXTS[2] and
+    codes decoded for it (float32 beam search, cap 64)."""
+    cfg = dvae.DVAEConfig()
+    cpu = dvae.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = weights.from_jax_params(cpu, "cuda")
+    mel = tts._cond_mel(prompt).transpose(1, 2).float()
+    mel = mel[:, : mel.shape[1] // 4 * 4]
+    t0 = time.perf_counter()
+    codes = dvae.get_codebook_indices(card, cfg, mel)
+    dec = dvae.decode(card, cfg, codes)
+    torch.cuda.synchronize()
+    dvae_ms = 1e3 * (time.perf_counter() - t0)
+    codes_cpu = dvae.get_codebook_indices(cpu, cfg, mel.cpu())
+    if not torch.equal(codes.cpu(), codes_cpu):
+        raise AssertionError(f"dvae: card codes differ from the CPU's on "
+                             f"{int((codes.cpu() != codes_cpu).sum())} of "
+                             f"{codes_cpu.numel()}")
+    dec_cpu = dvae.decode(cpu, cfg, codes_cpu)
+    dvae_err = float((dec.cpu() - dec_cpu).abs().max())
+    dvae_lim = DVAE_TOL * max(1.0, float(dec_cpu.abs().max()))
+    if not dvae_err <= dvae_lim:
+        raise AssertionError(f"dvae decode: {dvae_err} > {dvae_lim}")
+    sp = sinc_conv.init(80, 251, 16000, device="cpu")
+    x16 = torch.from_numpy(load_audio(prompt, 16000)[0, :16000])
+    sinc_cpu = sinc_conv.forward(sp, x16[None], 251)
+    sinc_card = sinc_conv.forward({k: v.cuda() for k, v in sp.items()},
+                                  x16[None].cuda(), 251)
+    sinc_err = float((sinc_card.cpu() - sinc_cpu).abs().max())
+    sinc_lim = DVAE_TOL * max(1.0, float(sinc_cpu.abs().max()))
+    if sinc_card.shape != (1, 16000, 80) or not sinc_err <= sinc_lim:
+        raise AssertionError(f"sinc_conv {tuple(sinc_card.shape)}: "
+                             f"{sinc_err} > {sinc_lim}")
+    ecapa32 = weights.cast_floating(tts.params["bigvgan"]["speaker_encoder"],
+                                    torch.float32)
+    embed = speaker_sim.make_ecapa_embedder(ecapa32)
+    sim = speaker_sim.speaker_similarity(load_audio(prompt, 24000)[0], 24000,
+                                         wav, 24000, embed)
+    if not (np.isfinite(sim) and -1.0 <= sim <= 1.0):
+        raise AssertionError(f"speaker_similarity {sim}")
+    # forward_latent on a real sentence and its decoded codes
+    params = weights.cast_floating(tts.params["gpt"], torch.float32)
+    gcfg = tts.gpt_cfg
+    ids = tts.sentence_rows(TEXTS[2])[0]
+    row = torch.as_tensor(ids, dtype=torch.long, device="cuda")[None]
+    conds = tts._conditioning(tts._cond_mel(prompt)).float()
+    x = tts.fused_batch([ids])
+    emb, keep = decode_mod.build_prefix_emb(params, gcfg, conds, x["ids"],
+                                            x["pos"], x["seg"], x["cond_idx"])
+    res = decode_mod._beam_decode(
+        params, gcfg, replace(tts._sampling_config({}), do_sample=False,
+                              max_mel_tokens=HIST_CAP),
+        emb, keep, None, 3, 0.0, stochastic=False, live=x["live"])
+    n_codes = int(res.lengths[0])
+    codes_row = res.codes[:1, :n_codes]
+    lens = lambda n: torch.tensor([n], device="cuda")
+    args = (params, gcfg, conds, row, lens(row.shape[1]), codes_row,
+            lens(n_codes))
+    lat = gpt_model.forward_latent(*args)
+    lat_b = gpt_model.forward_latent_bucketed(*args)
+    lat_err = float((lat - lat_b).abs().max())
+    lat_lim = DVAE_TOL * max(1.0, float(lat_b.abs().max()))
+    if lat.shape != (1, n_codes, gcfg.model_dim) or not lat_err <= lat_lim:
+        raise AssertionError(f"forward_latent {tuple(lat.shape)} vs bucketed: "
+                             f"{lat_err} > {lat_lim}")
+    del params, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return read_counts(), {
+        "dvae": {"mel_frames": mel.shape[1], "codes": codes.shape[1],
+                 "codes_equal_cpu": True, "decode_err": dvae_err,
+                 "decode_tol": dvae_lim, "card_ms": dvae_ms},
+        "sinc_conv": {"err": sinc_err, "tol": sinc_lim},
+        "speaker_similarity": sim,
+        "forward_latent": {"codes": n_codes, "vs_bucketed": lat_err,
+                           "tol": lat_lim}}
+
+
 def run_trace(tts: IndexTTS, prompt: str, tmp: Path) -> dict:
     """One request's gpt_gen split into conditioning, prefill + decode, trim
     and latent pass, stage by stage. Then TRACE_STEPS decode steps (from
@@ -1824,6 +2128,22 @@ def main() -> int:
         phase("slice8", t0)
 
         t0 = time.perf_counter()
+        t1 = time.perf_counter()
+        hist_paths, report = run_histories(tts, prompt)
+        paths.update(hist_paths)
+        phase("slice9/histories", t1, json.dumps(report))
+        t1 = time.perf_counter()
+        paths["slice9/fused-window"], fused_wav, report = run_fused_window(
+            tts, prompt)
+        phase("slice9/fused-window", t1, json.dumps(report))
+        t1 = time.perf_counter()
+        zero_counts()
+        paths["slice9/dvae-eval"], report = run_dvae_eval(tts, prompt,
+                                                          fused_wav)
+        phase("slice9/dvae-eval", t1, json.dumps(report))
+        phase("slice9", t0)
+
+        t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as model_dir:
             model_dir = Path(model_dir)
             t1 = time.perf_counter()
@@ -1879,7 +2199,9 @@ def main() -> int:
         "launches_by_path")
     kernels[2]["launches_note"] = ("launches: the vocoder-ref stream "
                                    "(stream_device, 600 frames)")
-    kernels[3]["launches_note"] = "launches: the beam-cof decode"
+    kernels[3]["launches_note"] = ("launches: the beam-cof decode; every "
+                                   "history in launches_by_path "
+                                   "(slice9/histories/*, bf16 sampling)")
     kernels[1]["widths"] = k2_widths
     kernels[0]["ragged"] = ragged["snake_cmajor"]
     kernels[2]["ragged"] = ragged["snake_clast"]

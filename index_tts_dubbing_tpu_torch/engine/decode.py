@@ -253,19 +253,67 @@ def generate(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
 # with -1e9 so that the nb copies do not repeat; beam sampling keeps all
 # scores at zero (HF samples over nb identical copies, a quirk kept).
 #
-# History reorder (``reorder``): the prefix is stored once per batch row
-# (gpt.SplitCache) and only the generated region is per beam.
-#   "anc" (default): no cache row ever moves. A per-slot ancestry map
-#         (B, nb, G) routes attention to the physical beam that holds each
-#         slot (gpt.trunk_decode_step_split_anc).
-#   "cof": copy-on-fork. Beams that survive keep their physical rows; each
-#         forked beam copies its ancestor's history into a row that a dead
-#         beam freed (ops/permute.copy_on_fork, one launch per step). The
-#         trunk runs in physical row order (gpt.trunk_decode_step_split).
-# Both give the same tokens as a full history gather.
+# History reorder (``reorder``), the counterpart of HF ``_reorder_cache``,
+# which gathers the whole cache every step. The JAX package's strategies,
+# by family:
+#
+# - ancestry, over a split cache (gpt.SplitCache: the prefix once per
+#   batch row, the gen region per beam in the heads-major layout): no cache
+#   row ever moves; a per-slot map (B, nb, G) says which physical beam of
+#   its row holds each slot, and attention routes through it.
+#     "anc" (default)  scores against every physical beam, the ancestor's
+#                      selected (gpt.trunk_decode_step_split_anc);
+#     "ancb"           the map as an additive -1e30 bias over one flattened
+#                      (nb·G) key axis (..._split_anc_bias);
+#     "ancsw"          "anc" with the gen products bounded to the smallest
+#                      of three widths that covers the occupied slots
+#                      (..._split_anc_sw);
+#     "ancg"           the whole layer-stacked gen cache routed by two
+#                      gathers before the layer loop (..._split_ancg);
+#     "ancfull"        one merged (L, B, H, nb, S, D) buffer with the prefix
+#                      replicated per beam; the map runs over absolute slots
+#                      (gpt.trunk_decode_step_anc_full).
+# - split: the same split cache in the (L, B·nb, H, G, D) layout.
+#     "split"          the gen region gathered by the switch every step;
+#     "cof"            copy-on-fork: beams that survive keep their physical
+#                      rows, each forked beam copies its ancestor's history
+#                      into a row a dead beam freed (ops/permute
+#                      .copy_on_fork, kernel B4, one launch per step); the
+#                      trunk runs in physical row order.
+# - legacy single buffer: the prefix repeated nb times at prefill into one
+#   (L, B·nb, H, S0 + G, D) cache, decoded by gpt.trunk_decode_step.
+#     "full", "flatfull"  gather the whole cache by the switch;
+#     "gen", "flat"       gather only the gen region [S0, S0 + G);
+#     "mm"                the gen region permuted by a one-hot product over
+#                         the beam axis;
+#     "blocked"           the gen region in blocks of 128 slots, each
+#                         gathered only once written and when the switch is
+#                         not the identity.
+# - diagnostic:
+#     "none", "ancnone", "splitnone"  skip the reorder ("ancnone" keeps the
+#                         "anc" step, "splitnone" the split step): wrong by
+#                         design whenever a switch is not the identity;
+#     "cofdense"          B4's copies, then a dense gather of the gen region
+#                         back to identity row maps: cof's copy bookkeeping
+#                         without its physical-order trunk step.
+# Every strategy but "none", "ancnone" and "splitnone" gives the tokens of
+# "full" (in float32: bf16 rounds the split and ancestry attention apart
+# from the single buffer's on near-ties).
 
 _BEAM_NEG = -1e9
-BEAM_REORDERS = ("anc", "cof")
+_ANC = ("anc", "ancnone", "ancb", "ancsw", "ancg")
+_SPLIT = ("split", "splitnone", "cof", "cofdense")
+_LEGACY = ("full", "gen", "flat", "flatfull", "mm", "blocked", "none")
+BEAM_REORDERS = _ANC + ("ancfull",) + _SPLIT + _LEGACY
+# the ancestry strategies' trunk steps, by name in models/gpt.py (looked up
+# at each call, so a caller may wrap one there)
+_ANC_STEPS = {"anc": "trunk_decode_step_split_anc",
+              "ancnone": "trunk_decode_step_split_anc",
+              "ancb": "trunk_decode_step_split_anc_bias",
+              "ancsw": "trunk_decode_step_split_anc_sw",
+              "ancg": "trunk_decode_step_split_ancg"}
+# "blocked": gen slots per block
+_SB = 128
 
 
 def _gumbel(shape, generator: Optional[torch.Generator], device
@@ -314,32 +362,27 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
                  length_penalty: float, stochastic: bool,
                  reorder: str = "anc",
                  live: Optional[torch.Tensor] = None) -> GenerateResult:
-    """Beam search (``stochastic=False``) or beam sampling over a split KV
-    cache; returns the best hypothesis per row. prefix_emb (B, S0, C) ends
-    with the start_mel slot; ``live`` (B,) bool marks batch-padding rows
-    False, which are done from step 0. The step counter stays on the host,
-    and "every row done" is checked on the host every 8 steps."""
+    """Beam search (``stochastic=False``) or beam sampling; returns the best
+    hypothesis per row. prefix_emb (B, S0, C) ends with the start_mel slot;
+    ``live`` (B,) bool marks batch-padding rows False, which are done from
+    step 0; ``reorder`` names the history strategy (``BEAM_REORDERS``, see
+    above). The step counter stays on the host, and "every row done" is
+    checked on the host every 8 steps."""
     if reorder not in BEAM_REORDERS:
-        raise NotImplementedError(
-            f"beam reorder strategy {reorder!r} is not ported yet (the port "
-            f"has {BEAM_REORDERS}): ROADMAP queue A, item 15")
+        raise ValueError(f"unknown beam reorder strategy {reorder!r}: one of "
+                         f"{BEAM_REORDERS}")
     b, s0, _ = prefix_emb.shape
     dev, dtype = prefix_emb.device, prefix_emb.dtype
     nb = num_beams
     bn = b * nb
     n_cand = 2 * nb
     max_steps = sc.max_mel_tokens
+    s_total = s0 + max_steps
     vocab = cfg.number_mel_codes
     stop = cfg.stop_mel_token
-    anc = reorder == "anc"
-
-    pcache = gpt_model.init_cache(cfg, b, s0, dtype, dev)
-    h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep, pcache)
-    if anc:
-        kg, vg = gpt_model.init_gen_cache_anc(cfg, b, nb, max_steps, dtype, dev)
-    else:
-        kg, vg = gpt_model.init_gen_cache(cfg, bn, max_steps, dtype, dev)
-    cache = gpt_model.SplitCache(pcache.k, pcache.v, kg, vg)
+    anc = reorder in _ANC
+    ancfull = reorder == "ancfull"
+    cof = reorder in ("cof", "cofdense")
 
     beams = torch.arange(nb, device=dev)
     row_off = torch.arange(b, device=dev)[:, None] * nb         # (B, 1)
@@ -350,6 +393,36 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
     # once on the device so that no step copies a host value to the device
     norms = torch.arange(1, max_steps + 1, dtype=torch.float32,
                          device=dev).pow(float(length_penalty))
+
+    keep_full = None
+    if reorder in _LEGACY:
+        full = gpt_model.init_cache(cfg, b, s_total, dtype, dev)
+        h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep, full)
+        # a row's beams are contiguous (row-major (B, nb))
+        cache = gpt_model.KVCache(full.k.repeat_interleave(nb, dim=1),
+                                  full.v.repeat_interleave(nb, dim=1))
+        del full
+        keep_full = torch.cat([pad_keep.repeat_interleave(nb, dim=0),
+                               torch.ones((bn, max_steps), dtype=torch.bool,
+                                          device=dev)], dim=1)
+    else:
+        pcache = gpt_model.init_cache(cfg, b, s0, dtype, dev)
+        h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep, pcache)
+        if ancfull:
+            shape = (cfg.layers, b, cfg.heads, nb, s_total, cfg.head_dim)
+            kf = torch.zeros(shape, dtype=dtype, device=dev)
+            vf = torch.zeros(shape, dtype=dtype, device=dev)
+            kf[:, :, :, :, :s0] = pcache.k[:, :, :, None]
+            vf[:, :, :, :, :s0] = pcache.v[:, :, :, None]
+            cache = gpt_model.KVCache(kf, vf)
+            keep_full = torch.cat([pad_keep, torch.ones(
+                (b, max_steps), dtype=torch.bool, device=dev)], dim=1)
+        else:
+            kg, vg = (gpt_model.init_gen_cache_anc(cfg, b, nb, max_steps,
+                                                   dtype, dev) if anc else
+                      gpt_model.init_gen_cache(cfg, bn, max_steps, dtype, dev))
+            cache = gpt_model.SplitCache(pcache.k, pcache.v, kg, vg)
+        del pcache
 
     def penalised_logp(hid, seen):
         logits = gpt_model.mel_logits_from_hidden(params, hid).float()
@@ -387,20 +460,11 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
         xv = x.reshape(b, nb, -1)
         return torch.gather(xv, 1, src[..., None].expand(-1, -1, xv.shape[2]))
 
-    def reorder_cache(st, src, j):
-        if anc:
-            # slot j-1 was just written by physical == logical beam: stamp it
-            # identity, then compose the whole map with the switch (at j = 0
-            # the stamp lands on slot 0, as the JAX update's clamped index
-            # does; a later step overwrites it)
-            st.amap[:, :, max(j - 1, 0)] = beams
-            st.amap = torch.gather(st.amap, 1,
-                                   src[..., None].expand(-1, -1, max_steps))
-            return
-        # copy-on-fork: the first beam to claim a physical row keeps it; each
-        # later claim (a fork) takes a row that no beam claimed and copies
-        # the ancestor's history [0, j) there. Sources and destinations are
-        # disjoint, so the copy runs in place.
+    def reorder_cof(st, src, j):
+        """Copy-on-fork: the first beam to claim a physical row keeps it;
+        each later claim (a fork) takes a row that no beam claimed and
+        copies the ancestor's history [0, j) there. Sources and
+        destinations are disjoint, so the copy runs in place."""
         src_phys = torch.gather(st.m.reshape(b, nb) - row_off, 1, src)
         first_claim = ~((src[:, :, None] == src[:, None, :]) & earlier).any(2)
         kept = (src_phys[:, :, None] == beams[None, None, :]).any(1)
@@ -411,10 +475,71 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
         cp = torch.full((b, nb), -1, dtype=torch.long, device=dev).scatter(
             1, m_new, torch.where(first_claim, -1, src_phys))
         cp = torch.where(cp >= 0, row_off + cp, -1).reshape(bn)
-        st.m = (row_off + m_new).reshape(bn)
+        c = st.cache
+        permute.copy_on_fork(c.kg, c.vg, cp.int(), j - 1)
+        m_flat = (row_off + m_new).reshape(bn)
+        if reorder == "cofdense":
+            # back to identity row maps: a dense gather of the gen region
+            st.cache = c._replace(kg=c.kg[:, m_flat], vg=c.vg[:, m_flat])
+            return
+        st.m = m_flat
         st.inv = (row_off + torch.zeros_like(m_new).scatter(
             1, m_new, beams.expand(b, nb))).reshape(bn)
-        permute.copy_on_fork(cache.kg, cache.vg, cp.int(), j - 1)
+
+    def reorder_cache(st, src, j):
+        """Apply the beam switch ``src`` (B, nb: each new beam's source
+        beam in its row) to the history, after the step that generated j
+        tokens before it."""
+        if reorder in ("none", "ancnone", "splitnone"):
+            return
+        if anc or ancfull:
+            # slot j-1 was just written by physical == logical beam: stamp it
+            # identity, then compose the whole map with the switch. At j = 0
+            # the "anc" stamp lands on slot 0, as the JAX update's clamped
+            # index does (a later step overwrites it); "ancfull" maps
+            # absolute slots, so its stamp at j = 0 is the prefix's last
+            # slot, in range, as in JAX.
+            slot = s0 + j - 1 if ancfull else max(j - 1, 0)
+            st.amap[:, :, slot] = beams
+            st.amap = torch.gather(st.amap, 1, src[..., None].expand(
+                -1, -1, st.amap.shape[2]))
+            return
+        if cof:
+            reorder_cof(st, src, j)
+            return
+        src_flat = (row_off + src).reshape(bn)
+        c = st.cache
+        if reorder == "split":
+            # An index gather of the gen rows, where the JAX package
+            # multiplies by a one-hot (bn, bn) matrix: with one nonzero
+            # term per output the product equals the gather bit for bit
+            # (exact only without TF32 in float32), while the gather moves
+            # each row once and needs no product.
+            st.cache = c._replace(kg=c.kg[:, src_flat], vg=c.vg[:, src_flat])
+        elif reorder in ("full", "flatfull"):
+            st.cache = gpt_model.KVCache(c.k[:, src_flat], c.v[:, src_flat])
+        elif reorder in ("gen", "flat"):
+            for t in c:
+                t[:, :, :, s0:] = t[:, src_flat, :, s0:]
+        elif reorder == "mm":
+            # one-hot product over the beam axis, in the cache's dtype: exact
+            # with one nonzero term per output (float32 needs TF32 off,
+            # PyTorch's default for matmul)
+            onehot = (src[:, :, None] == beams[None, None, :]).to(dtype)
+            for t in c:
+                g = t[:, :, :, s0:].reshape(cfg.layers, b, nb, -1)
+                t[:, :, :, s0:] = torch.einsum("bij,lbjx->lbix", onehot, g
+                                               ).reshape(t[:, :, :, s0:].shape)
+        elif reorder == "blocked":
+            # blocks not yet written are skipped on the host; "the switch is
+            # the identity" stays on the device and selects the block as it
+            # was, so no step waits on the device
+            ident = (src == beams[None, :]).all()
+            for lo in range(0, j, _SB):
+                sl = slice(s0 + lo, s0 + min(lo + _SB, max_steps))
+                for t in c:
+                    t[:, :, :, sl] = torch.where(ident, t[:, :, :, sl],
+                                                 t[:, src_flat, :, sl])
 
     def process(st, cand, src_beam, tok, best_next, j):
         """BeamSearchScorer.process and the finished pool, for a step that
@@ -457,6 +582,30 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
         worst = st.pool_norm.min(dim=1).values
         st.done = st.done | (pool_full & (worst >= best_next / norm))
 
+    def trunk_step(st, emb, j):
+        """Hidden states (B·nb, C) of the step after j - 1 generated
+        tokens; writes its K/V at gen slot j - 1."""
+        if ancfull:
+            return gpt_model.trunk_decode_step_anc_full(
+                params, cfg, emb, st.cache.k, st.cache.v, s0 + j - 1,
+                keep_full, nb, st.amap)
+        if anc:
+            return getattr(gpt_model, _ANC_STEPS[reorder])(
+                params, cfg, emb, st.cache, j - 1, pad_keep, nb, st.amap)
+        if cof:
+            # the trunk runs in physical row order: embeddings go in by the
+            # physical → logical map, hidden states come out by the inverse
+            # (both stay the identity on "cofdense")
+            return gpt_model.trunk_decode_step_split(
+                params, cfg, emb[st.inv], st.cache, j - 1, pad_keep, nb)[st.m]
+        if reorder in _SPLIT:
+            return gpt_model.trunk_decode_step_split(
+                params, cfg, emb, st.cache, j - 1, pad_keep, nb)
+        slot = s0 + j - 1
+        keep = keep_full & (torch.arange(s_total, device=dev) <= slot)
+        return gpt_model.trunk_decode_step(params, cfg, emb, st.cache, slot,
+                                           keep)
+
     seen = torch.zeros((bn, vocab), dtype=torch.bool, device=dev)
     seen[:, sc.fake_prefix_id] = True
     seen[:, cfg.start_mel_token] = True
@@ -471,6 +620,7 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
     if live is not None:
         done = done | ~live
     st = SimpleNamespace(
+        cache=cache,
         tokens=torch.full((bn, max_steps), stop, dtype=torch.long, device=dev),
         seen=seen, beam_scores=beam_scores, prev=None, done=done,
         pool_norm=torch.full((b, nb), float("-inf"), device=dev),
@@ -479,8 +629,11 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
         pool_len=torch.zeros((b, nb), dtype=torch.long, device=dev),
         # cof: logical → physical and physical → logical row maps
         m=rows_bn, inv=rows_bn,
-        # anc: (B, nb, G) logical beam × gen slot → physical beam in its row
-        amap=beams[None, :, None].expand(b, nb, max_steps).contiguous())
+        # anc: (B, nb, G) logical beam × gen slot → physical beam in its
+        # row; ancfull: the same over the absolute slots (B, nb, S0 + G)
+        amap=beams[None, :, None].expand(
+            b, nb, s_total if ancfull else max_steps).contiguous())
+    del cache
 
     logp = penalised_logp(h.repeat_interleave(nb, dim=0), st.seen)
     process(st, *select_candidates(logp, st.beam_scores), 0)
@@ -490,15 +643,7 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
             break
         emb = (params["mel_emb"]["w"][st.prev]
                + params["mel_pos"]["w"][j + 1]).to(dtype)
-        if anc:
-            hh = gpt_model.trunk_decode_step_split_anc(
-                params, cfg, emb, cache, j - 1, pad_keep, nb, st.amap)
-        else:
-            # the trunk runs in physical row order: embeddings go in by the
-            # physical → logical map, hidden states come out by the inverse
-            hh = gpt_model.trunk_decode_step_split(
-                params, cfg, emb[st.inv], cache, j - 1, pad_keep, nb)[st.m]
-        logp = penalised_logp(hh, st.seen)
+        logp = penalised_logp(trunk_step(st, emb, j), st.seen)
         process(st, *select_candidates(logp, st.beam_scores), j)
         j += 1
 

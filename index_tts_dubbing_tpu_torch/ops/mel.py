@@ -47,6 +47,7 @@ class MelSpectrogram:
                  n_mels: int = 100, f_min: float = 0.0,
                  f_max: float | None = None, center: bool = True,
                  device="cuda"):
+        self.sample_rate = sample_rate
         self.n_fft = n_fft
         self.hop_length = hop_length
         self.win_length = win_length or n_fft

@@ -203,8 +203,8 @@ def test_beam_sample_token_exact_with_the_jax_noise(setup, monkeypatch,
 def test_cof_calls_copy_on_fork_once_per_step(setup, monkeypatch):
     """The cof decode calls copy_on_fork once per selection step, the first
     (bound -1) included, through the wrapper, which on the CPU takes the
-    plain version and counts no launch; an unported strategy names its
-    ROADMAP item."""
+    plain version and counts no launch; a strategy the decode does not
+    know raises."""
     bounds = []
 
     def spy(kg, vg, cp, bound, gb=64):
@@ -217,5 +217,5 @@ def test_cof_calls_copy_on_fork_once_per_step(setup, monkeypatch):
     res = _port_beam(setup, False, 0.0, "cof")
     assert bounds == list(range(-1, res.steps - 1))
     assert real.launches == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_beam(setup, False, 0.0, "split")
+    with pytest.raises(ValueError, match="unknown beam reorder"):
+        _port_beam(setup, False, 0.0, "bogus")

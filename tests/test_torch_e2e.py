@@ -144,18 +144,19 @@ def test_infer_fast_beam_search_matches_jax(engines):
 
 
 def test_requests_outside_the_slice_raise():
-    """The unported beam history strategies and the mesh name their later
-    slice instead of running (int8, continuous batching and the v1.0
-    conditioning run now: tests/test_torch_quant.py,
+    """The mesh names its later slice instead of running, and a beam
+    history strategy the decode does not know raises (every JAX strategy
+    runs now: tests/test_torch_histories.py; int8, continuous batching and
+    the v1.0 conditioning: tests/test_torch_quant.py,
     test_torch_continuous.py, test_torch_legacy_cond.py)."""
     pcfg = pconfig.EngineConfig(gpt=pconfig.GPTConfig(**GPT_SMALL),
                                 bigvgan=pconfig.BigVGANConfig(**BV_SMALL))
     eng = PortTTS(config=pcfg, device="cpu", verbose_init=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown beam reorder"):
         pdecode._beam_decode(eng.params["gpt"], pcfg.gpt,
                              pdecode.SamplingConfig(), torch.zeros(1, 3, 64),
                              torch.ones(1, 3, dtype=torch.bool), None, 3, 0.0,
-                             stochastic=False, reorder="split")
+                             stochastic=False, reorder="bogus")
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 14"):
         PortTTS(config=pcfg, device="cpu", mesh=object())
 
