@@ -150,6 +150,32 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
                          of the prompt and the fused window's wav, and
                          forward_latent against forward_latent_bucketed on one
                          sentence in float32.
+8. slice 10 - after slice 9, before the surfaces:
+             mesh-serve  - two ranks of this script (--mesh-rank, started by
+                         the phase after the kernels are built, so they load
+                         them) on the one card, gloo over TCP on 127.0.0.1
+                         with CUDA tensors (NCCL refuses two ranks on one
+                         device): IndexTTS(is_fp16=True, seed=0,
+                         mesh=make_mesh(1, 2)) serves one infer_fast with
+                         the reference's defaults at cap 80 on the staged
+                         route (TEXTS[2], three sentences: 240 frames, so
+                         the stream vocodes in windows on K1 and K2); each rank's wav checked, the two equal, K1
+                         and K2 launched on each rank and B4 on none; float32
+                         greedy generate at cap 64 on four rows at (1, 2)
+                         and (2, 1) against this process's (equal, or
+                         parting first at a near-tie under GAP_TOL); ms a
+                         step of the mesh's beam and greedy decodes beside
+                         one process's. A rank that fails or passes
+                         MESH_RANK_TIMEOUT fails the phase;
+             train-gpt   - five train_steps of the full-width GPT in float32
+                         (batch 4: a 3 s mel, 64 text tokens, 200 codes; lr
+                         1e-3, warmup 1): finite, falling losses, ms a step,
+                         max_memory_allocated; the small config's two steps
+                         on the card within TRAIN_TOL of the CPU's;
+             train-vocoder - the generator's and discriminators' totals with
+                         backward on 1.5 s of the fused window's wav:
+                         finite, ms each; the generator total within
+                         LOSS_RTOL of the CPU's on 0.25 s.
 Then one JSON line describing the kernels and, last, the device line.
 Float32 convs and products run without TF32 throughout (set below), so the
 plain versions are float32 references.
@@ -160,6 +186,7 @@ import faulthandler
 import gc
 import json
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -188,6 +215,7 @@ from index_tts_dubbing_tpu_torch.engine import vocoder as voc_mod
 from index_tts_dubbing_tpu_torch.engine.tts import IndexTTS
 from index_tts_dubbing_tpu_torch.eval import speaker_sim
 from index_tts_dubbing_tpu_torch.models import bigvgan as bigvgan_mod
+from index_tts_dubbing_tpu_torch.models import bigvgan_disc as disc
 from index_tts_dubbing_tpu_torch.models import dvae
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
 from index_tts_dubbing_tpu_torch.models import legacy_cond
@@ -197,10 +225,13 @@ from index_tts_dubbing_tpu_torch.ops import resblock_cmajor as k2
 from index_tts_dubbing_tpu_torch.ops import sinc_conv
 from index_tts_dubbing_tpu_torch.ops import snake_clast as b3
 from index_tts_dubbing_tpu_torch.ops import snake_cmajor as k1
+from index_tts_dubbing_tpu_torch.parallel import mesh as mesh_lib
+from index_tts_dubbing_tpu_torch.training import step as train_mod
+from index_tts_dubbing_tpu_torch.training import vocoder_losses as vl
 from index_tts_dubbing_tpu_torch.utils import checkpoint, profiling
 from index_tts_dubbing_tpu_torch.utils.audio import load_audio, write_wav
 
-WATCHDOG_S = 900
+WATCHDOG_S = 1150
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # dense bf16 tensor cores
@@ -1916,6 +1947,347 @@ def run_dvae_eval(tts: IndexTTS, prompt: str, wav: np.ndarray):
                            "tol": lat_lim}}
 
 
+# --- slice 10: the mesh and training ---------------------------------------
+
+MESH_CAP = 80               # mesh/serve: the beam-sampling request's cap
+MESH_GREEDY_CAP = 64
+MESH_RANK_TIMEOUT = 420     # s a rank may take, its engine's build included
+TRAIN_STEPS = 5
+TRAIN_BATCH = 4
+TRAIN_MEL_FRAMES = 3 * 24000 // 256     # a 3 s conditioning mel
+TRAIN_TEXT, TRAIN_CODES = 64, 200
+TRAIN_TOL = 5e-5            # small config, card vs CPU, after 2 AdamW steps
+VOCODER_TRAIN_SAMPLES = 36000           # 1.5 s at 24 kHz
+LOSS_RTOL = 1e-3            # vocoder totals, card vs CPU (float32, no TF32)
+
+
+def first_difference(p32, cfg, sc, emb, keep, ref, got, ref_len, got_len,
+                     name: str):
+    """None when a greedy row equals ``generate``'s; else the first step
+    where they part, which must be a near-tie of ``generate``'s logits
+    (top-2 gap under GAP_TOL relative)."""
+    n = min(ref_len, got_len)
+    diff = np.nonzero(got[:n] != ref[:n])[0]
+    if ref_len == got_len and not diff.size:
+        return None
+    step = int(diff[0]) if diff.size else n
+    top = torch.topk(processed_logits_at(p32, cfg, sc, emb, keep, ref, step),
+                     2).values
+    gap = float((top[0] - top[1]) / top[0].abs().clamp_min(1e-30))
+    if not gap < GAP_TOL:
+        raise AssertionError(f"{name} differs from one process at step "
+                             f"{step}, top-2 gap {gap}")
+    return {"step": step, "gap": gap}
+
+
+def mesh_rows(tts: IndexTTS) -> list:
+    """Four sentence rows: TEXTS[2]'s three and TEXTS[1]."""
+    return tts.sentence_rows(TEXTS[2]) + tts.sentence_rows(TEXTS[1])
+
+
+def mesh_worker(rank: int, port: int, inputs: str, out: str) -> int:
+    """One rank of mesh/serve (``chip_smoke.py --mesh-rank``): gloo over
+    TCP on 127.0.0.1, CUDA tensors on the one card. (data 1, model 2): the
+    full-width bf16 engine serves one infer_fast with the reference's
+    defaults (beam sampling) and times its beam decode; float32 greedy
+    ``generate`` on the parent's prefix at (1, 2) and at (2, 1). Writes its
+    wav, launch counts, codes and times to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = mesh_lib.init_distributed(f"127.0.0.1:{port}", 2, rank,
+                                        backend="gloo")
+    cuda_lib.load()
+    z = np.load(inputs)
+    mesh12 = mesh_lib.make_mesh(1, 2)
+    t0 = time.perf_counter()
+    eng = IndexTTS(is_fp16=True, seed=0, verbose_init=False, mesh=mesh12)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = str(z["prompt"])
+    (sr, wav), counts, rep = run_path(eng, lambda: eng.infer_fast(
+        prompt, TEXTS[2], max_mel_tokens=MESH_CAP))
+    expect("mesh/serve", eng, "staged")
+    check_audio("mesh/serve", sr, wav, np.sum(eng.last_sentence_frames),
+                eng.vocoder.upsample)
+    check_finite("mesh/serve", eng.last_wav)
+    res = {"wav": wav, "init_s": init_s, "backend": backend,
+           "report": json.dumps(rep), "counts": json.dumps(counts)}
+
+    # the beam decode alone, the parent's rows and noise seed
+    conds = eng._conditioning(eng._cond_mel(prompt))
+    sc = eng._sampling_config(dict(max_mel_tokens=MESH_CAP))
+    rows = [z[f"row{i}"] for i in range(int(z["n_rows"]))]
+    eng._generator.manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes, _ = eng._decode_batch(conds, rows[:1], sc)
+    torch.cuda.synchronize()
+    res["beam_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / MESH_CAP
+
+    # float32 greedy at (1, 2) and (2, 1) on the parent's prefix
+    gen = torch.Generator("cuda").manual_seed(0)
+    full = weights.cast_floating(weights.from_jax_params(
+        weights.init(eng.cfg, gen, "cuda")["gpt"], "cuda", torch.bfloat16),
+        torch.float32)
+    emb = torch.as_tensor(z["emb"], device="cuda")
+    keep = torch.as_tensor(z["keep"], device="cuda")
+    gsc = decode_mod.SamplingConfig(do_sample=False,
+                                    max_mel_tokens=MESH_GREEDY_CAP)
+    specs = mesh_lib.gpt_param_specs(full, 2)
+    for name, mesh, p in (("12", mesh12, mesh_lib.shard_tree(full, specs,
+                                                               mesh12)),
+                          ("21", mesh_lib.make_mesh(2, 1), full)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = decode_mod.generate(p, eng.gpt_cfg, gsc, emb, keep, mesh=mesh)
+        torch.cuda.synchronize()
+        res[f"greedy{name}_ms_per_step"] = (1e3 * (time.perf_counter() - t0)
+                                            / g.steps)
+        res[f"greedy{name}_codes"] = g.codes.cpu().numpy()
+        res[f"greedy{name}_lens"] = g.lengths.cpu().numpy()
+    np.savez(out, **res)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_mesh_serve(tts: IndexTTS, prompt: str, tmp: Path):
+    """mesh/serve: two ranks of ``mesh_worker`` on the one card (NCCL refuses
+    two ranks on one device, so gloo, with CUDA tensors); the kernels were
+    built by this process first, so the ranks load them and do not race the
+    build. Each rank's wav is checked (int16 at 24 kHz, finite, not
+    constant, its sentences' frames) and the two must be equal; K1 and K2
+    launch on each rank and B4 on none. Float32 greedy codes at (1, 2) and
+    (2, 1) against this process's ``generate`` on the same prefix: equal,
+    or parting first at a near-tie under GAP_TOL. ms a step of each beside
+    one process."""
+    cfg = tts.gpt_cfg
+    rows = mesh_rows(tts)
+    p32 = weights.cast_floating(tts.params["gpt"], torch.float32)
+    c32 = tts._conditioning(tts._cond_mel(prompt)).float()
+    pad_to = next(b for b in tts.TEXT_BUCKETS if b >= max(r.size for r in rows))
+    pre = decode_mod.prepare_prefix_host(cfg, rows, pad_to=pad_to)
+    t = lambda k: torch.as_tensor(pre[k].astype(np.int64), device="cuda")
+    emb, keep = decode_mod.build_prefix_emb(p32, cfg, c32, t("ids"), t("pos"),
+                                            t("seg"), t("cond_idx"))
+    inputs = tmp / "mesh_inputs.npz"
+    np.savez(inputs, prompt=prompt, emb=emb.cpu().numpy(),
+             keep=keep.cpu().numpy(), n_rows=len(rows),
+             **{f"row{i}": r for i, r in enumerate(rows)})
+    # one process first, alone on the card: the beam decode and float32
+    # greedy
+    sc = tts._sampling_config(dict(max_mel_tokens=MESH_CAP))
+    conds = tts._conditioning(tts._cond_mel(prompt))
+    tts._generator.manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tts._decode_batch(conds, rows[:1], sc)
+    torch.cuda.synchronize()
+    one = {"beam_ms_per_step": 1e3 * (time.perf_counter() - t0) / MESH_CAP}
+    gsc = decode_mod.SamplingConfig(do_sample=False,
+                                    max_mel_tokens=MESH_GREEDY_CAP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = decode_mod.generate(p32, cfg, gsc, emb, keep)
+    torch.cuda.synchronize()
+    one["greedy_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / ref.steps
+    ref_codes, ref_lens = ref.codes.cpu().numpy(), ref.lengths.cpu().numpy()
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logs = [open(tmp / f"mesh_rank{r}.log", "w+") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(r), "--mesh-port",
+         str(port), "--mesh-inputs", str(inputs), "--mesh-out",
+         str(tmp / f"mesh_rank{r}.npz")], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+
+    deadline = time.perf_counter() + MESH_RANK_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError("mesh/serve: a rank passed its timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.seek(0)
+            text = f.read()
+            f.close()
+            print(text.rstrip()[-3000:], flush=True)
+    if any(p.returncode for p in procs):
+        raise AssertionError("mesh/serve: rank exit codes "
+                             f"{[p.returncode for p in procs]}")
+    got = [np.load(tmp / f"mesh_rank{r}.npz") for r in range(2)]
+    if not np.array_equal(got[0]["wav"], got[1]["wav"]):
+        raise AssertionError("mesh/serve: the two ranks' wavs differ")
+    counts = [json.loads(str(g["counts"])) for g in got]
+    for r, c in enumerate(counts):
+        if min(c["snake_cmajor"], c["resblock_cmajor"]) < 1 \
+                or c["copy_on_fork"]:
+            raise AssertionError(f"mesh/serve rank {r}: launches {c}")
+    out = {"backend": str(got[0]["backend"]),
+           "ranks": [json.loads(str(g["report"])) for g in got],
+           "init_s": [float(g["init_s"]) for g in got],
+           "wav_samples": int(got[0]["wav"].shape[0]),
+           "beam_ms_per_step": {"one_process": one["beam_ms_per_step"],
+                                "mesh_1x2": [float(g["beam_ms_per_step"])
+                                             for g in got]},
+           "greedy_ms_per_step": {"one_process": one["greedy_ms_per_step"]}}
+    for name in ("12", "21"):
+        out["greedy_ms_per_step"][f"mesh_{name[0]}x{name[1]}"] = [
+            float(g[f"greedy{name}_ms_per_step"]) for g in got]
+        for r, g in enumerate(got):
+            codes, lens = g[f"greedy{name}_codes"], g[f"greedy{name}_lens"]
+            ties = [first_difference(p32, cfg, gsc, emb[i:i + 1],
+                                     keep[i:i + 1], ref_codes[i], codes[i],
+                                     int(ref_lens[i]), int(lens[i]),
+                                     f"mesh/serve ({name}) rank {r} row {i}")
+                    for i in range(len(rows))]
+            out[f"greedy_{name[0]}x{name[1]}_rank{r}"] = {
+                "equal_rows": sum(x is None for x in ties),
+                "ties": [x for x in ties if x]}
+    del p32
+    # rank 0's counts stand for the path; every rank's are checked above
+    return counts[0], dict(out, launches=counts)
+
+
+def run_train_gpt():
+    """train/gpt: five ``train_step``s of the full-width GPT in float32 on
+    the card (batch 4: a 3 s mel, 64 text tokens, 200 codes; lr 1e-3,
+    warmup 1): finite losses, the last below the first; ms a step and the
+    peak memory. Then the small config's two steps on the card against the
+    CPU's from the same weights: losses within 1e-4 relative, every
+    parameter within TRAIN_TOL."""
+    cfg = EngineConfig().gpt
+    gen = torch.Generator("cuda").manual_seed(0)
+    b = TRAIN_BATCH
+    batch = {
+        "cond_mel": torch.randn((b, TRAIN_MEL_FRAMES, 100), generator=gen,
+                                device="cuda"),
+        "cond_lens": torch.full((b,), TRAIN_MEL_FRAMES, device="cuda"),
+        "text_ids": torch.randint(2, cfg.number_text_tokens,
+                                  (b, TRAIN_TEXT), generator=gen,
+                                  device="cuda"),
+        "text_lens": torch.tensor([64, 60, 48, 40], device="cuda"),
+        "codes": torch.randint(0, 8192, (b, TRAIN_CODES), generator=gen,
+                               device="cuda"),
+        "code_lens": torch.tensor([200, 180, 150, 120], device="cuda")}
+    tx = train_mod.make_optimizer(lr=1e-3, warmup=1)
+    state = train_mod.init_state(
+        weights.init_gpt(weights.Init(gen, "cuda"), cfg), tx)
+    n_params = sum(p.numel() for p in weights.jax_leaves(state.params))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, norms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_mod.train_step(state, batch, cfg, tx)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train/gpt losses {losses}")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    scfg = replace(cfg, **SMALL_GPT)
+    cpu_gen = torch.Generator().manual_seed(1)
+    small = weights.init_gpt(weights.Init(cpu_gen, "cpu"), scfg)
+    sb = {"cond_mel": torch.randn((2, 40, 100), generator=cpu_gen),
+          "cond_lens": torch.tensor([40, 32]),
+          "text_ids": torch.randint(2, 120, (2, 10), generator=cpu_gen),
+          "text_lens": torch.tensor([10, 7]),
+          "codes": torch.randint(0, 8192, (2, 12), generator=cpu_gen),
+          "code_lens": torch.tensor([10, 6])}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        st = train_mod.init_state(
+            weights.from_jax_params(small, dev), tx)
+        ls = []
+        for _ in range(2):
+            st, m = train_mod.train_step(
+                st, {k: v.to(dev) for k, v in sb.items()}, scfg, tx)
+            ls.append(float(m["loss"]))
+        runs[dev] = (ls, [p.detach().cpu() for p in
+                          weights.jax_leaves(st.params)])
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    worst = max(float((a - c).abs().max())
+                for a, c in zip(runs["cuda"][1], runs["cpu"][1]))
+    if not worst <= TRAIN_TOL:
+        raise AssertionError(f"train/gpt small: card vs CPU {worst}")
+    return {"params": n_params, "batch": b, "mel_frames": TRAIN_MEL_FRAMES,
+            "text": TRAIN_TEXT, "codes": TRAIN_CODES, "losses": losses,
+            "grad_norms": norms, "ms_per_step": ms,
+            "max_memory_allocated": peak,
+            "small_card_vs_cpu": {"losses_card": runs["cuda"][0],
+                                  "losses_cpu": runs["cpu"][0],
+                                  "max_param_diff": worst}}
+
+
+def run_train_vocoder(wav: np.ndarray):
+    """train/vocoder: the generator's and the discriminators' totals with
+    backward on 1.5 s of an engine wav (the generated wav: the same plus
+    noise), the discriminators random from a seed: finite losses and
+    gradients, ms each; the generator total on the card within LOSS_RTOL
+    of the CPU's on the first 0.25 s."""
+    gen = torch.Generator("cuda").manual_seed(2)
+    real = torch.as_tensor(wav[:VOCODER_TRAIN_SAMPLES], device="cuda")[None]
+    if real.shape[1] != VOCODER_TRAIN_SAMPLES:
+        raise AssertionError(f"train/vocoder: {real.shape[1]} samples")
+    fake = (real + 0.05 * torch.randn(real.shape, generator=gen,
+                                      device="cuda")).requires_grad_(True)
+    mpd = disc.init_mpd(gen, "cuda")
+    mrd = disc.init_mrd(gen, "cuda")
+    dparams = weights.jax_leaves(mpd) + weights.jax_leaves(mrd)
+    for p in dparams:
+        p.requires_grad_(True)
+    banks = vl.make_mel_banks(device="cuda")
+    out = {}
+    for name in ("generator", "discriminator"):
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "generator":
+                total, terms = vl.generator_total_loss(mpd, mrd, banks, real,
+                                                       fake)
+                grads = torch.autograd.grad(total, [fake] + dparams)
+            else:
+                total, terms = vl.discriminator_total_loss(mpd, mrd, real,
+                                                           fake)
+                grads = torch.autograd.grad(total, dparams)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        if not (torch.isfinite(total) and all(torch.isfinite(g).all()
+                                              for g in grads)):
+            raise AssertionError(f"train/vocoder {name}: not finite")
+        out[name] = {"total": total.item(), "ms": ms,
+                     **{k: v.item() for k, v in terms.items()}}
+    n = VOCODER_TRAIN_SAMPLES // 6
+    cut = lambda t, dev: t.detach()[:, :n].to(dev)
+    to_cpu = lambda tree: weights.from_jax_params(
+        weights.to_jax_params(tree), "cpu")
+    card = vl.generator_total_loss(mpd, mrd, banks, cut(real, "cuda"),
+                                   cut(fake, "cuda"))[0].item()
+    host = vl.generator_total_loss(
+        to_cpu(mpd), to_cpu(mrd), vl.make_mel_banks(device="cpu"),
+        cut(real, "cpu"), cut(fake, "cpu"))[0].item()
+    if not abs(card - host) <= LOSS_RTOL * abs(host):
+        raise AssertionError(f"train/vocoder: card {card}, CPU {host}")
+    out["card_vs_cpu"] = {"samples": n, "card": card, "cpu": host}
+    return out
+
+
 def run_trace(tts: IndexTTS, prompt: str, tmp: Path) -> dict:
     """One request's gpt_gen split into conditioning, prefill + decode, trim
     and latent pass, stage by stage. Then TRACE_STEPS decode steps (from
@@ -2011,9 +2383,18 @@ def run_trace(tts: IndexTTS, prompt: str, tmp: Path) -> dict:
 
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
-    argparse.ArgumentParser(description=__doc__,
-                            formatter_class=argparse.RawDescriptionHelpFormatter
-                            ).parse_args()
+    ap = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    # one rank of the mesh/serve phase, started by the phase itself
+    for arg in ("--mesh-rank", "--mesh-port"):
+        ap.add_argument(arg, type=int, help=argparse.SUPPRESS)
+    for arg in ("--mesh-inputs", "--mesh-out"):
+        ap.add_argument(arg, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.mesh_rank is not None:
+        return mesh_worker(args.mesh_rank, args.mesh_port, args.mesh_inputs,
+                           args.mesh_out)
     t_all = time.perf_counter()
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2142,6 +2523,21 @@ def main() -> int:
                                                           fused_wav)
         phase("slice9/dvae-eval", t1, json.dumps(report))
         phase("slice9", t0)
+
+        t0 = time.perf_counter()
+        t1 = time.perf_counter()
+        paths["mesh/serve"], report = run_mesh_serve(tts, prompt, Path(tmp))
+        phase("slice10/mesh-serve", t1, json.dumps(report))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        phase("slice10/train-gpt", t1, json.dumps(run_train_gpt()))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        phase("slice10/train-vocoder", t1,
+              json.dumps(run_train_vocoder(fused_wav)))
+        phase("slice10", t0)
 
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as model_dir:

@@ -10,6 +10,10 @@ module names and layout mirror it:
 - ``ops``     — mel frontend, anti-aliased activations and the two vocoder
                 kernels (hand-written CUDA under ``csrc/``).
 - ``engine``  — sampling decode, windowed vocoder and the ``IndexTTS`` engine.
+- ``parallel`` — (data, model) meshes over torch.distributed: tensor
+                parallelism for the GPT, data parallelism for the decode.
+- ``training`` — the GPT train step (AdamW, JAX's npz state layout) and the
+                vocoder's GAN and multi-scale mel losses.
 - ``utils``   — text frontend and audio IO (host-only copies).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -13,6 +13,10 @@ below ``generate``). Semantics kept from the reference:
   (including the all-ones fake prefix ids and the start token, so ids 1 and
   8192 are penalised from step 0) → typical → temperature → top-k → top-p;
 - each row stops at stop_mel_token; finished rows emit stop_mel.
+
+Every decode takes ``mesh=``: each data group decodes its contiguous rows
+of the global batch, tensor-parallel over ``model`` (models/gpt.py), and
+the codes are gathered back, as the JAX decode shards its batch.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from index_tts_dubbing_tpu_torch import nn
 from index_tts_dubbing_tpu_torch.config import GPTConfig
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
 from index_tts_dubbing_tpu_torch.ops import permute
+from index_tts_dubbing_tpu_torch.parallel import mesh as tp
 
 SEG_PAD, SEG_COND, SEG_TEXT = 0, 1, 2
 # decode steps between host checks of "every row finished": the check syncs
@@ -162,6 +167,54 @@ def _process_logits(logits: torch.Tensor, seen: torch.Tensor,
     return logits
 
 
+class _Rows:
+    """The batch rows this rank decodes: under a mesh each data group takes
+    its contiguous rows of the global batch; without one, every row.
+
+    Sampling draws for the global batch from the one generator and then
+    cuts out these rows, so a mesh samples what one process samples. Under
+    a mesh the dead rows after the last live one (the engine's padding to a
+    multiple of ``data``) draw nothing: the draws are those of one process
+    on the unpadded batch."""
+
+    def __init__(self, mesh, b: int, live: Optional[torch.Tensor] = None):
+        self.mesh = mesh
+        self.b = self.n_draw = b
+        if mesh is None:
+            return
+        if b % tp.axis_size(mesh, "data"):
+            raise ValueError(f"batch {b} does not divide by the data axis "
+                             f"({tp.axis_size(mesh, 'data')})")
+        if live is not None and bool(live.any()):
+            self.n_draw = int(torch.nonzero(live).max()) + 1
+
+    def local(self, x):
+        """This rank's rows of a global (B, ...) tensor."""
+        if self.mesh is None or x is None:
+            return x
+        return tp.data_shard(self.mesh, x)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows back into the global batch."""
+        return x if self.mesh is None else tp.replicate(self.mesh, x)
+
+    def drawn(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of draws made for the first ``n_draw`` rows of
+        the global batch (zeros for the padding rows)."""
+        if self.n_draw < self.b:
+            x = torch.cat([x, x.new_zeros((self.b - self.n_draw,)
+                                          + x.shape[1:])])
+        return self.local(x)
+
+    def all_done(self, done: torch.Tensor) -> bool:
+        """Whether every row is done; under a mesh, on every rank of the
+        world (the ranks of a model group share collectives, so all stop on
+        the same step)."""
+        if self.mesh is None:
+            return bool(done.all())
+        return tp.all_true(self.mesh, done)
+
+
 class GenerateResult(NamedTuple):
     codes: torch.Tensor     # (B, max_steps) generated mel codes, stop-padded
     lengths: torch.Tensor   # (B,) codes before the stop token
@@ -171,11 +224,24 @@ class GenerateResult(NamedTuple):
 def generate(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
              prefix_emb: torch.Tensor, pad_keep: torch.Tensor,
              generator: Optional[torch.Generator] = None,
-             live: Optional[torch.Tensor] = None) -> GenerateResult:
+             live: Optional[torch.Tensor] = None,
+             mesh=None) -> GenerateResult:
     """Sample (or, with ``do_sample=False``, greedily pick) mel codes.
     prefix_emb (B, S0, C) ends with the start_mel slot. ``live`` (B,) bool
     marks batch-padding rows False: they emit stop at step 0 and never keep
-    the loop running. The loop runs at most ``sc.max_mel_tokens`` steps."""
+    the loop running. The loop runs at most ``sc.max_mel_tokens`` steps.
+    ``mesh``: a (data, model) mesh (parallel/mesh.py) with ``params``
+    sharded over ``model``; the inputs are the global batch, each data group
+    decodes its rows and the result is the global batch again."""
+    with tp.use(mesh):
+        return _generate(params, cfg, sc, prefix_emb, pad_keep, generator,
+                         live, _Rows(mesh, prefix_emb.shape[0], live))
+
+
+def _generate(params, cfg, sc, prefix_emb, pad_keep, generator, live,
+              part: _Rows) -> GenerateResult:
+    prefix_emb, pad_keep, live = (part.local(t) for t in
+                                  (prefix_emb, pad_keep, live))
     b, s0, _ = prefix_emb.shape
     dev = prefix_emb.device
     max_steps = sc.max_mel_tokens
@@ -196,8 +262,9 @@ def generate(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
         logits = _process_logits(
             gpt_model.mel_logits_from_hidden(params, hidden), seen, sc)
         if sc.do_sample:
-            probs = torch.softmax(logits, dim=-1)
-            return torch.multinomial(probs, 1, generator=generator)[:, 0]
+            probs = part.gather(torch.softmax(logits, dim=-1))
+            return part.drawn(torch.multinomial(probs[:part.n_draw], 1,
+                                                generator=generator))[:, 0]
         return torch.argmax(logits, dim=-1)
 
     tok = sample_token(h)
@@ -210,7 +277,7 @@ def generate(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
     seen[rows, tok] = True
     j = 1
     while j < max_steps:
-        if j % _DONE_CHECK_EVERY == 0 and bool(done.all()):
+        if j % _DONE_CHECK_EVERY == 0 and part.all_done(done):
             break
         # previous token at mel position j+1 (parity quirk)
         emb = (params["mel_emb"]["w"][tok]
@@ -227,7 +294,7 @@ def generate(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
     first_stop = torch.argmax(is_stop.int(), dim=1)
     lengths = torch.where(is_stop.any(dim=1), first_stop,
                           torch.full_like(first_stop, max_steps))
-    return GenerateResult(tokens, lengths, j)
+    return GenerateResult(part.gather(tokens), part.gather(lengths), j)
 
 
 # ---------------------------------------------------------------------------
@@ -361,16 +428,32 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
                  generator: Optional[torch.Generator], num_beams: int,
                  length_penalty: float, stochastic: bool,
                  reorder: str = "anc",
-                 live: Optional[torch.Tensor] = None) -> GenerateResult:
+                 live: Optional[torch.Tensor] = None,
+                 mesh=None) -> GenerateResult:
     """Beam search (``stochastic=False``) or beam sampling; returns the best
     hypothesis per row. prefix_emb (B, S0, C) ends with the start_mel slot;
     ``live`` (B,) bool marks batch-padding rows False, which are done from
     step 0; ``reorder`` names the history strategy (``BEAM_REORDERS``, see
     above). The step counter stays on the host, and "every row done" is
-    checked on the host every 8 steps."""
+    checked on the host every 8 steps. ``mesh``: as in ``generate``; the
+    beams of a row stay on its data group, and "cof" and "cofdense" decode
+    as "split" (as in JAX, kernel B4 serves one card only)."""
     if reorder not in BEAM_REORDERS:
         raise ValueError(f"unknown beam reorder strategy {reorder!r}: one of "
                          f"{BEAM_REORDERS}")
+    if mesh is not None and reorder in ("cof", "cofdense"):
+        reorder = "split"
+    with tp.use(mesh):
+        return _beam(params, cfg, sc, prefix_emb, pad_keep, generator,
+                     num_beams, length_penalty, stochastic, reorder, live,
+                     _Rows(mesh, prefix_emb.shape[0], live))
+
+
+def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
+          length_penalty, stochastic, reorder, live, part: _Rows
+          ) -> GenerateResult:
+    prefix_emb, pad_keep, live = (part.local(t) for t in
+                                  (prefix_emb, pad_keep, live))
     b, s0, _ = prefix_emb.shape
     dev, dtype = prefix_emb.device, prefix_emb.dtype
     nb = num_beams
@@ -409,7 +492,8 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
         pcache = gpt_model.init_cache(cfg, b, s0, dtype, dev)
         h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep, pcache)
         if ancfull:
-            shape = (cfg.layers, b, cfg.heads, nb, s_total, cfg.head_dim)
+            shape = (cfg.layers, b, gpt_model.local_heads(cfg), nb, s_total,
+                     cfg.head_dim)
             kf = torch.zeros(shape, dtype=dtype, device=dev)
             vf = torch.zeros(shape, dtype=dtype, device=dev)
             kf[:, :, :, :, :s0] = pcache.k[:, :, :, None]
@@ -446,8 +530,9 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
         flat = scores.reshape(b, nb * vocab)
         z = flat
         if stochastic:
-            z = torch.where(torch.isneginf(flat), float("-inf"),
-                            flat + _gumbel(flat.shape, generator, dev))
+            noise = part.drawn(_gumbel((part.n_draw,) + flat.shape[1:],
+                                       generator, dev))
+            z = torch.where(torch.isneginf(flat), float("-inf"), flat + noise)
         idx = _top_k(z, n_cand)[1]
         cand = torch.gather(flat, 1, idx)
         order = torch.argsort(-cand, dim=1, stable=True)
@@ -639,7 +724,7 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
     process(st, *select_candidates(logp, st.beam_scores), 0)
     j = 1
     while j < max_steps:
-        if j % _DONE_CHECK_EVERY == 0 and bool(st.done.all()):
+        if j % _DONE_CHECK_EVERY == 0 and part.all_done(st.done):
             break
         emb = (params["mel_emb"]["w"][st.prev]
                + params["mel_pos"]["w"][j + 1]).to(dtype)
@@ -661,17 +746,18 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
     # the beam that went on after its eos)
     out = torch.where(torch.arange(max_steps, device=dev)[None, :]
                       < out_len[:, None], all_tok[rows, best], stop)
-    return GenerateResult(out, out_len, j)
+    return GenerateResult(part.gather(out), part.gather(out_len), j)
 
 
 def generate_beam(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
                   prefix_emb: torch.Tensor, pad_keep: torch.Tensor,
                   num_beams: int = 3, length_penalty: float = 0.0,
-                  live: Optional[torch.Tensor] = None) -> GenerateResult:
+                  live: Optional[torch.Tensor] = None,
+                  mesh=None) -> GenerateResult:
     """Deterministic beam search (HF beam_search, do_sample=False)."""
     return _beam_decode(params, cfg, sc, prefix_emb, pad_keep, None,
                         num_beams, length_penalty, stochastic=False,
-                        live=live)
+                        live=live, mesh=mesh)
 
 
 def generate_beam_sample(params: Dict[str, Any], cfg: GPTConfig,
@@ -679,10 +765,10 @@ def generate_beam_sample(params: Dict[str, Any], cfg: GPTConfig,
                          pad_keep: torch.Tensor,
                          generator: Optional[torch.Generator],
                          num_beams: int = 3, length_penalty: float = 0.0,
-                         live: Optional[torch.Tensor] = None
-                         ) -> GenerateResult:
+                         live: Optional[torch.Tensor] = None,
+                         mesh=None) -> GenerateResult:
     """Beam sampling (HF beam_sample), the reference's default decode:
     candidates drawn without replacement by Gumbel top-k."""
     return _beam_decode(params, cfg, sc, prefix_emb, pad_keep, generator,
                         num_beams, length_penalty, stochastic=True,
-                        live=live)
+                        live=live, mesh=mesh)

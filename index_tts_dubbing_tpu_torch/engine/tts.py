@@ -17,8 +17,12 @@ Every route vocodes through the windowed C-major vocoder on kernels K1 and
 K2. The decode is the reference's default, beam sampling with
 ``num_beams=3``, or beam search (``do_sample=False``), or with
 ``num_beams=1`` sampling or greedy; the report names the one that ran.
-Requests outside the port raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+
+``IndexTTS(mesh=make_mesh(data, model))`` (parallel/mesh.py) serves every
+entry point on a mesh: the GPT tensor-parallel over ``model``, each decode
+batch padded to a multiple of ``data`` with dead rows and split over it,
+the codes gathered back, the vocoder replicated. Every rank returns the
+same wav.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from index_tts_dubbing_tpu_torch.engine.decode import SamplingConfig
 from index_tts_dubbing_tpu_torch.engine.vocoder import WindowedVocoder
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
 from index_tts_dubbing_tpu_torch.ops.mel import MelSpectrogram
+from index_tts_dubbing_tpu_torch.parallel import mesh as mesh_lib
 from index_tts_dubbing_tpu_torch.utils import audio as audio_util
 from index_tts_dubbing_tpu_torch.utils import convert
 from index_tts_dubbing_tpu_torch.utils.checkpoint import (flatten_tree,
@@ -240,10 +245,6 @@ class StageTimes:
         return self.total / max(self.audio_seconds, 1e-9)
 
 
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
-
-
 class IndexTTS:
     """The engine, with the reference's public constructor, ``infer``,
     ``infer_fast`` and ``infer_batch``. Runs on ``device`` ("cuda" unless
@@ -298,8 +299,6 @@ class IndexTTS:
                  mesh=None, vocoder_window: Optional[int] = None):
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode: {quantize!r}")
-        if mesh is not None:
-            raise _later("mesh-parallel decode", "queue A, item 14")
         self.device = torch.device(device if device is not None else "cuda")
         self.cfg = (config if config is not None
                     else load_config(cfg_path) if cfg_path else EngineConfig())
@@ -322,6 +321,15 @@ class IndexTTS:
             # float32, and the conditioning encoder and the embeddings stay
             # in the engine's dtype
             self.params["gpt"] = quantize_gpt_int8(self.params["gpt"])
+        # With a mesh: the GPT tensor-parallel over ``model`` (this rank's
+        # slice of each sharded leaf), the vocoder replicated
+        # (parallel/mesh.py)
+        self.mesh = mesh
+        if mesh is not None:
+            self.params["gpt"] = mesh_lib.shard_tree(
+                self.params["gpt"], mesh_lib.gpt_param_specs(
+                    self.params["gpt"], mesh_lib.axis_size(mesh, "model")),
+                mesh)
         self.normalizer = TextNormalizer()
         self.normalizer.load()
         self.tokenizer = self._load_tokenizer()
@@ -447,6 +455,17 @@ class IndexTTS:
         """Run one bucketed decode and leave its result on the device:
         (GenerateResult, real row count). The caller reads the codes back
         when it needs them."""
+        n_real = len(token_rows)
+        live = None
+        if self.mesh is not None:
+            # the batch tiles the data axis: dead one-token rows, marked by
+            # ``live``, stop at step 0
+            pad_n = -n_real % mesh_lib.axis_size(self.mesh, "data")
+            if pad_n:
+                token_rows = (list(token_rows)
+                              + [np.array([2], np.int32)] * pad_n)
+                live = torch.as_tensor(np.arange(len(token_rows)) < n_real,
+                                       device=self.device)
         lmax = max(r.size for r in token_rows)
         pad_to = next((b for b in self.TEXT_BUCKETS if b >= lmax), lmax)
         pre = decode_mod.prepare_prefix_host(self.gpt_cfg, token_rows,
@@ -457,16 +476,17 @@ class IndexTTS:
             self.params["gpt"], self.gpt_cfg, conds, dev("ids"), dev("pos"),
             dev("seg"), dev("cond_idx"))
         args = (self.params["gpt"], self.gpt_cfg, sc, emb, keep)
+        kw = dict(live=live, mesh=self.mesh)
         beam = dict(num_beams=self._num_beams,
-                    length_penalty=self._length_penalty)
+                    length_penalty=self._length_penalty, **kw)
         if self._num_beams > 1 and sc.do_sample:
             res = decode_mod.generate_beam_sample(*args, self._generator,
                                                   **beam)
         elif self._num_beams > 1:
             res = decode_mod.generate_beam(*args, **beam)
         else:
-            res = decode_mod.generate(*args, self._generator)
-        return res, len(token_rows)
+            res = decode_mod.generate(*args, self._generator, **kw)
+        return res, n_real
 
     def _decode_continuous(self, conds: torch.Tensor,
                            token_rows: List[np.ndarray], sc: SamplingConfig,
@@ -480,9 +500,12 @@ class IndexTTS:
             self.params["gpt"], self.gpt_cfg, sc, conds,
             batch=min(batch, len(token_rows)),
             text_buckets=self.TEXT_BUCKETS, generator=self._generator)
-        results = batcher.run(
-            [cb.CBRequest(uid=i, text_ids=r) for i, r in enumerate(token_rows)],
-            dtype=self.dtype)
+        # under a mesh every rank runs every request (the data axis is not
+        # split), tensor-parallel over ``model``, as the JAX engine does
+        with mesh_lib.use(self.mesh):
+            results = batcher.run(
+                [cb.CBRequest(uid=i, text_ids=r)
+                 for i, r in enumerate(token_rows)], dtype=self.dtype)
         self.last_cb_stats = dict(batcher.stats, slots=batcher.batch)
         max_len = max((ln for _, ln in results.values()), default=0)
         codes = np.full((len(token_rows), max(max_len, 1)),
@@ -543,9 +566,10 @@ class IndexTTS:
             cnds = conds
             if cnds.shape[0] == 1 and g > 1:
                 cnds = cnds.expand((g,) + cnds.shape[1:])
-            lat = gpt_model.forward_latent_bucketed(
-                self.params["gpt"], self.gpt_cfg, cnds, dev(text), dev(tlens),
-                dev(cpad), dev(clens))
+            with mesh_lib.use(self.mesh):
+                lat = gpt_model.forward_latent_bucketed(
+                    self.params["gpt"], self.gpt_cfg, cnds, dev(text),
+                    dev(tlens), dev(cpad), dev(clens))
             parts.append(F.pad(lat, (0, 0, 0, mb_all - mb)))
             rowmap.append(idxs)
             lens.append(clens)
@@ -571,8 +595,10 @@ class IndexTTS:
     # -- the fused route -------------------------------------------------
     def _fused_eligible(self, rows: List[np.ndarray]) -> bool:
         """Non-empty rows, batch within the largest batch bucket, every row
-        within the largest text bucket."""
-        if not rows or len(rows) > self.FUSED_BATCH_BUCKETS[-1]:
+        within the largest text bucket; never under a mesh (the staged route
+        serves there, as in the JAX engine)."""
+        if (self.mesh is not None or not rows
+                or len(rows) > self.FUSED_BATCH_BUCKETS[-1]):
             return False
         limit = min(self.TEXT_BUCKETS[-1], self.gpt_cfg.max_text_tokens)
         return not any(r.size == 0 or r.size > limit for r in rows)

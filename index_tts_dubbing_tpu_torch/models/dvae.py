@@ -18,6 +18,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from index_tts_dubbing_tpu_torch import nn
 from index_tts_dubbing_tpu_torch.weights import Init
@@ -132,16 +133,23 @@ class EMAState(NamedTuple):
 
 
 def ema_update(params: Params, state: EMAState, logits: torch.Tensor,
-               codes: torch.Tensor, decay: float = 0.99, eps: float = 1e-5
-               ) -> Tuple[Params, EMAState]:
+               codes: torch.Tensor, decay: float = 0.99, eps: float = 1e-5,
+               group=None) -> Tuple[Params, EMAState]:
     """EMA codebook update: new (params, state); the inputs are not
-    changed."""
+    changed. ``group``: a process group (a mesh's ``data`` group, the JAX
+    ``axis_name``) over which the code counts and embedding sums are summed
+    before the update, so each rank updates as one process would on the
+    whole batch."""
     n_embed = state.cluster_size.shape[0]
     flat = logits.reshape(-1, logits.shape[-1])
     onehot = torch.nn.functional.one_hot(codes.reshape(-1), n_embed
                                          ).to(flat.dtype)
-    cluster = state.cluster_size * decay + onehot.sum(0) * (1 - decay)
-    embed_avg = state.embed_avg * decay + (flat.T @ onehot) * (1 - decay)
+    onehot_sum, embed_sum = onehot.sum(0), flat.T @ onehot
+    if group is not None:
+        for t in (onehot_sum, embed_sum):
+            dist.all_reduce(t, group=group)
+    cluster = state.cluster_size * decay + onehot_sum * (1 - decay)
+    embed_avg = state.embed_avg * decay + embed_sum * (1 - decay)
     n = cluster.sum()
     cs = (cluster + eps) / (n + n_embed * eps) * n
     new_params = dict(params)

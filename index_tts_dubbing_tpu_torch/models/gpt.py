@@ -11,6 +11,14 @@ of per-layer dicts (``weights.from_jax_params`` unstacks the JAX package's
 stacked layout). Attention is plain matmul → mask → softmax → matmul with
 float32 scores, as in the JAX trunk.
 
+Under a mesh (parallel/mesh.py) every trunk function runs tensor-parallel
+over the ``model`` axis, Megatron-style: this rank's heads and MLP slice,
+``copy_to_model`` before the qkv and fc projections, ``reduce_from_model``
+after the attention and MLP ``proj`` products (the replicated bias added
+once, after it), and a vocabulary-sharded head gathers its logits. Without
+one each collective is the identity. ``forward_train`` gives the two
+training cross-entropies.
+
 Parity quirk kept from the reference: at decode, generated mel token j
 (1-based) takes mel position j+1 (the tortoise off-by-one the checkpoints
 were trained with).
@@ -25,6 +33,7 @@ import torch
 from index_tts_dubbing_tpu_torch import nn
 from index_tts_dubbing_tpu_torch.config import GPTConfig
 from index_tts_dubbing_tpu_torch.models import conformer, legacy_cond, perceiver
+from index_tts_dubbing_tpu_torch.parallel import mesh as tp
 
 Params = Dict[str, Any]
 _NEG = -1e30
@@ -36,8 +45,24 @@ def _act(cfg: GPTConfig, x: torch.Tensor) -> torch.Tensor:
     return nn.gelu_exact(x)
 
 
+def local_heads(cfg: GPTConfig) -> int:
+    """Attention heads held by this rank: ``heads / model`` under a mesh."""
+    return cfg.heads // tp.model_size()
+
+
+def _row_linear(lin: Params, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel linear (input dimension sharded over ``model``): the
+    partial products summed over the axis, then the replicated bias once."""
+    if tp.model_size() == 1:
+        return nn.linear(lin, x)
+    y = tp.reduce_from_model(nn.linear({k: v for k, v in lin.items()
+                                        if k != "b"}, x))
+    return y + lin["b"].to(y.dtype) if "b" in lin else y
+
+
 def _mlp(cfg: GPTConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    return nn.linear(p["proj"], _act(cfg, nn.linear(p["fc"], x)))
+    return _row_linear(p["proj"],
+                       _act(cfg, nn.linear(p["fc"], tp.copy_to_model(x))))
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -48,15 +73,21 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(w, v)
 
 
+def _qkv_proj(blk: Params, x: torch.Tensor):
+    """The column-parallel qkv projection of ln1(x): (q, k, v), each over
+    this rank's heads."""
+    return nn.linear(blk["attn"]["qkv"],
+                     tp.copy_to_model(nn.layer_norm(blk["ln1"], x))
+                     ).chunk(3, dim=-1)
+
+
 def _qkv(cfg: GPTConfig, blk: Params, x: torch.Tensor):
-    q, k, v = nn.linear(blk["attn"]["qkv"], nn.layer_norm(blk["ln1"], x)
-                        ).chunk(3, dim=-1)
-    return (nn.split_heads(t, cfg.heads) for t in (q, k, v))
+    return (nn.split_heads(t, local_heads(cfg)) for t in _qkv_proj(blk, x))
 
 
 def _block_out(cfg: GPTConfig, blk: Params, x: torch.Tensor,
                o: torch.Tensor) -> torch.Tensor:
-    x = x + nn.linear(blk["attn"]["proj"], nn.merge_heads(o))
+    x = x + _row_linear(blk["attn"]["proj"], nn.merge_heads(o))
     return x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
 
 
@@ -91,7 +122,7 @@ class KVCache(NamedTuple):
 
 def init_cache(cfg: GPTConfig, batch: int, max_len: int, dtype,
                device) -> KVCache:
-    shape = (cfg.layers, batch, cfg.heads, max_len, cfg.head_dim)
+    shape = (cfg.layers, batch, local_heads(cfg), max_len, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -146,7 +177,7 @@ class SplitCache(NamedTuple):
 def init_gen_cache(cfg: GPTConfig, bn: int, gen_len: int, dtype, device
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gen-region cache (L, BN, H, G, D), rows in physical beam order."""
-    shape = (cfg.layers, bn, cfg.heads, gen_len, cfg.head_dim)
+    shape = (cfg.layers, bn, local_heads(cfg), gen_len, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -156,7 +187,7 @@ def init_gen_cache_anc(cfg: GPTConfig, b: int, nb: int, gen_len: int, dtype,
     """Gen-region cache in the heads-major ancestry layout
     (L, B, H, nb, G, D): a row's nb beams of one head are one contiguous
     (nb·G, D) block, so attention over every physical beam is one matmul."""
-    shape = (cfg.layers, b, cfg.heads, nb, gen_len, cfg.head_dim)
+    shape = (cfg.layers, b, local_heads(cfg), nb, gen_len, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -182,13 +213,12 @@ def trunk_decode_step_split(params: Params, cfg: GPTConfig, x: torch.Tensor,
     copy of the gen region per layer."""
     bn = x.shape[0]
     b = bn // nb
-    h, d = cfg.heads, cfg.head_dim
+    h, d = local_heads(cfg), cfg.head_dim
     g_len, s0 = cache.kg.shape[3], cache.kp.shape[3]
     pbias, gbias = _split_biases(keep_p, g_len, slot)
     scale = 1.0 / math.sqrt(d)
     for li, blk in enumerate(params["blocks"]):
-        q, k, v = nn.linear(blk["attn"]["qkv"], nn.layer_norm(blk["ln1"], x)
-                            ).chunk(3, dim=-1)
+        q, k, v = _qkv_proj(blk, x)
         q = q.reshape(bn, h, d)
         cache.kg[li, :, :, slot] = k.reshape(bn, h, d)
         cache.vg[li, :, :, slot] = v.reshape(bn, h, d)
@@ -206,7 +236,7 @@ def trunk_decode_step_split(params: Params, cfg: GPTConfig, x: torch.Tensor,
         wg = wg.transpose(1, 2).reshape(bn, h, 1, g_len)
         o = o.reshape(bn, h, d) + torch.matmul(
             wg, cache.vg[li].to(x.dtype))[:, :, 0]
-        x = x + nn.linear(blk["attn"]["proj"], o.reshape(bn, h * d))
+        x = x + _row_linear(blk["attn"]["proj"], o.reshape(bn, h * d))
         x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
     return nn.layer_norm(params["ln_f"], x)
 
@@ -240,7 +270,7 @@ def _split_anc_step(params: Params, cfg: GPTConfig, x: torch.Tensor,
     [0, width) (width > slot); see ``trunk_decode_step_split_anc``."""
     bn = x.shape[0]
     b = bn // nb
-    h, d = cfg.heads, cfg.head_dim
+    h, d = local_heads(cfg), cfg.head_dim
     s0 = cache.kp.shape[3]
     pbias, gbias = _split_biases(keep_p, width, slot)
     scale = 1.0 / math.sqrt(d)
@@ -248,8 +278,7 @@ def _split_anc_step(params: Params, cfg: GPTConfig, x: torch.Tensor,
     pick = amap_eff[:, None, :, None, :].expand(b, h, nb, 1, width)
     onehot = _anc_onehot(amap_eff, nb).to(x.dtype)[:, None]     # (B,1,n,m,W)
     for li, blk in enumerate(params["blocks"]):
-        q, k, v = nn.linear(blk["attn"]["qkv"], nn.layer_norm(blk["ln1"], x)
-                            ).chunk(3, dim=-1)
+        q, k, v = _qkv_proj(blk, x)
         cache.kg[li, :, :, :, slot] = _heads_major(k, b, nb, h, d)
         cache.vg[li, :, :, :, slot] = _heads_major(v, b, nb, h, d)
         qf = _heads_major(q, b, nb, h, d).float()                # (B, H, nb, D)
@@ -269,7 +298,7 @@ def _split_anc_step(params: Params, cfg: GPTConfig, x: torch.Tensor,
         o = (torch.matmul(wp, cache.vp[li].to(x.dtype))
              + torch.matmul(wgm, vg))                   # (B, H, nb, D)
         o = o.transpose(1, 2).reshape(bn, h * d)
-        x = x + nn.linear(blk["attn"]["proj"], o)
+        x = x + _row_linear(blk["attn"]["proj"], o)
         x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
     return nn.layer_norm(params["ln_f"], x)
 
@@ -331,7 +360,7 @@ def trunk_decode_step_split_anc_bias(params: Params, cfg: GPTConfig,
     weight 0. Writes the new K/V slot in place; returns hidden (BN, C)."""
     bn = x.shape[0]
     b = bn // nb
-    h, d = cfg.heads, cfg.head_dim
+    h, d = local_heads(cfg), cfg.head_dim
     g_len, s0 = cache.kg.shape[4], cache.kp.shape[3]
     m_flat = nb * g_len
     pbias = torch.where(keep_p, 0.0, _NEG).float()[:, None, None, :]
@@ -340,8 +369,7 @@ def trunk_decode_step_split_anc_bias(params: Params, cfg: GPTConfig,
     gbias = torch.where(_anc_onehot(_amap_eff(amap, slot, nb), nb) & occ,
                         0.0, _NEG).float().reshape(b, 1, nb, m_flat)
     for li, blk in enumerate(params["blocks"]):
-        q, k, v = nn.linear(blk["attn"]["qkv"], nn.layer_norm(blk["ln1"], x)
-                            ).chunk(3, dim=-1)
+        q, k, v = _qkv_proj(blk, x)
         cache.kg[li, :, :, :, slot] = _heads_major(k, b, nb, h, d)
         cache.vg[li, :, :, :, slot] = _heads_major(v, b, nb, h, d)
         qf = _heads_major(q, b, nb, h, d).float()                # (B, H, nb, D)
@@ -355,7 +383,7 @@ def trunk_decode_step_split_anc_bias(params: Params, cfg: GPTConfig,
         o = (torch.matmul(wp, cache.vp[li].to(x.dtype))
              + torch.matmul(wg, vg))
         o = o.transpose(1, 2).reshape(bn, h * d)
-        x = x + nn.linear(blk["attn"]["proj"], o)
+        x = x + _row_linear(blk["attn"]["proj"], o)
         x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
     return nn.layer_norm(params["ln_f"], x)
 
@@ -374,7 +402,7 @@ def trunk_decode_step_split_ancg(params: Params, cfg: GPTConfig,
     products. Writes the new K/V slot in place; returns hidden (BN, C)."""
     bn = x.shape[0]
     b = bn // nb
-    h, d = cfg.heads, cfg.head_dim
+    h, d = local_heads(cfg), cfg.head_dim
     g_len = cache.kg.shape[4]
     pbias, gbias = _split_biases(keep_p, g_len, slot)
     scale = 1.0 / math.sqrt(d)
@@ -383,8 +411,7 @@ def trunk_decode_step_split_ancg(params: Params, cfg: GPTConfig,
     kr = torch.gather(cache.kg, 3, idx)
     vr = torch.gather(cache.vg, 3, idx)
     for li, blk in enumerate(params["blocks"]):
-        q, k, v = nn.linear(blk["attn"]["qkv"], nn.layer_norm(blk["ln1"], x)
-                            ).chunk(3, dim=-1)
+        q, k, v = _qkv_proj(blk, x)
         k, v = _heads_major(k, b, nb, h, d), _heads_major(v, b, nb, h, d)
         cache.kg[li, :, :, :, slot] = k
         cache.vg[li, :, :, :, slot] = v
@@ -401,7 +428,7 @@ def trunk_decode_step_split_ancg(params: Params, cfg: GPTConfig,
         o = (torch.matmul(wp, cache.vp[li].to(x.dtype))
              + torch.matmul(wg[..., None, :], vr[li].to(x.dtype))[..., 0, :])
         o = o.transpose(1, 2).reshape(bn, h * d)
-        x = x + nn.linear(blk["attn"]["proj"], o)
+        x = x + _row_linear(blk["attn"]["proj"], o)
         x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
     return nn.layer_norm(params["ln_f"], x)
 
@@ -421,7 +448,7 @@ def trunk_decode_step_anc_full(params: Params, cfg: GPTConfig,
     returns hidden (BN, C) after ln_f."""
     bn = x.shape[0]
     b = bn // nb
-    h, d = cfg.heads, cfg.head_dim
+    h, d = local_heads(cfg), cfg.head_dim
     s_total = kf.shape[4]
     ar = torch.arange(s_total, device=x.device)
     kbias = torch.where(keep & (ar <= slot_abs), 0.0, _NEG
@@ -431,8 +458,7 @@ def trunk_decode_step_anc_full(params: Params, cfg: GPTConfig,
     pick = amap_eff[:, None, :, None, :].expand(b, h, nb, 1, s_total)
     onehot = _anc_onehot(amap_eff, nb).to(x.dtype)[:, None]     # (B,1,n,m,S)
     for li, blk in enumerate(params["blocks"]):
-        q, k, v = nn.linear(blk["attn"]["qkv"], nn.layer_norm(blk["ln1"], x)
-                            ).chunk(3, dim=-1)
+        q, k, v = _qkv_proj(blk, x)
         kf[li, :, :, :, slot_abs] = _heads_major(k, b, nb, h, d)
         vf[li, :, :, :, slot_abs] = _heads_major(v, b, nb, h, d)
         qf = _heads_major(q, b, nb, h, d).float()                # (B, H, nb, D)
@@ -444,7 +470,7 @@ def trunk_decode_step_anc_full(params: Params, cfg: GPTConfig,
         wgm = (w[:, :, :, None, :] * onehot).reshape(b, h, nb, nb * s_total)
         o = torch.matmul(wgm, vf[li].to(x.dtype).reshape(b, h, nb * s_total, d))
         o = o.transpose(1, 2).reshape(bn, h * d)
-        x = x + nn.linear(blk["attn"]["proj"], o)
+        x = x + _row_linear(blk["attn"]["proj"], o)
         x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
     return nn.layer_norm(params["ln_f"], x)
 
@@ -467,9 +493,19 @@ def get_conditioning(params: Params, cfg: GPTConfig, mel: torch.Tensor,
                              heads=cfg.cond_attention_heads)
 
 
+def _vocab_head(lin: Params, x: torch.Tensor, vocab: int) -> torch.Tensor:
+    """An output head; one whose vocabulary is sharded over ``model`` (its
+    width below ``vocab``) gathers its logits over the axis."""
+    if (lin["w_q"] if "w_q" in lin else lin["w"]).shape[-1] == vocab:
+        return nn.linear(lin, x)
+    return tp.gather_from_model(nn.linear(lin, tp.copy_to_model(x)))
+
+
 def mel_logits_from_hidden(params: Params, h: torch.Tensor) -> torch.Tensor:
     """final_norm + mel head."""
-    return nn.linear(params["mel_head"], nn.layer_norm(params["final_norm"], h))
+    return _vocab_head(params["mel_head"],
+                       nn.layer_norm(params["final_norm"], h),
+                       params["mel_emb"]["w"].shape[0])
 
 
 def _framed_mel(cfg: GPTConfig, codes: torch.Tensor,
@@ -559,3 +595,38 @@ def forward_latent_bucketed(params: Params, cfg: GPTConfig, conds: torch.Tensor,
     h = trunk_forward(params, cfg, emb, pad_keep=keep)
     enc = nn.layer_norm(params["final_norm"], h[:, cond_n:])
     return enc[:, -mel.shape[1]:][:, :-2]
+
+
+def forward_train(params: Params, cfg: GPTConfig, mel_cond: torch.Tensor,
+                  cond_lens: torch.Tensor, text_ids: torch.Tensor,
+                  text_lens: torch.Tensor, codes: torch.Tensor,
+                  code_lens: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward: (loss_text, loss_mel), the cross-entropies of the
+    two streams against their inputs shifted left and framed with the stop
+    token; each the mean over every position, pads included, with a float32
+    log-softmax."""
+    conds = get_conditioning(params, cfg, mel_cond, cond_lens)
+    emb, _ = build_latent_inputs(params, cfg, conds, text_ids, text_lens,
+                                 codes, code_lens)
+    h = trunk_forward(params, cfg, emb)
+    enc = nn.layer_norm(params["final_norm"], h[:, conds.shape[1]:])
+    lt = text_ids.shape[1] + 2
+    text_logits = _vocab_head(params["text_head"], enc[:, :lt],
+                              params["text_emb"]["w"].shape[0])
+    mel_logits = _vocab_head(params["mel_head"], enc[:, lt:],
+                             params["mel_emb"]["w"].shape[0])
+
+    def shifted(ids, lens, keep_extra, stop):
+        pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+        x = torch.where(pos < (lens + keep_extra)[:, None], ids, stop)
+        return torch.cat([x, torch.full((x.shape[0], 2), stop, dtype=x.dtype,
+                                        device=x.device)], dim=1)
+
+    def ce(logits, tgt):
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.gather(lp, -1, tgt[..., None].long()).mean()
+
+    text_tgt = shifted(text_ids, text_lens, 0, cfg.stop_text_token)
+    mel_tgt = shifted(codes, code_lens, 1, cfg.stop_mel_token)
+    return ce(text_logits, text_tgt), ce(mel_logits, mel_tgt)

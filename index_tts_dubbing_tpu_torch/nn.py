@@ -71,10 +71,16 @@ def conv_transpose1d(p: Params, x: torch.Tensor, *, stride: int,
     return y
 
 
-def conv2d(p: Params, x: torch.Tensor, *, stride=(1, 1)) -> torch.Tensor:
-    """VALID 2-D conv over (B, H, W, C) with an HWIO kernel."""
+def conv2d(p: Params, x: torch.Tensor, *, stride=(1, 1),
+           padding=((0, 0), (0, 0))) -> torch.Tensor:
+    """2-D conv over (B, H, W, C) with an HWIO kernel; ``padding`` zero pads
+    ((top, bottom), (left, right)) first (the default is VALID)."""
     w = p["w"].to(x.dtype).permute(3, 2, 0, 1)       # (O, I, H, W)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride).permute(0, 2, 3, 1)
+    (top, bottom), (left, right) = padding
+    xt = x.permute(0, 3, 1, 2)
+    if top or bottom or left or right:
+        xt = F.pad(xt, (left, right, top, bottom))
+    y = F.conv2d(xt, w, stride=stride).permute(0, 2, 3, 1)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

@@ -8,6 +8,11 @@ axis) become a list of per-layer dicts, which is the port's layout. Tensor
 leaves pass through, moved and cast, so the port's own tree takes the same
 call.
 
+``to_jax_params`` is the way back (the trunk stacked again, numpy
+leaves), and ``jax_leaves``/``from_jax_leaves`` order a tree's leaves as
+``jax.tree.flatten`` does: with them the training state (parameters and
+Adam moments) is written in, and read from, the JAX package's layout.
+
 ``init`` builds full-width random weights without JAX, with the JAX
 package's tree, shapes and distributions (torch's default inits: uniform
 fan-in bounds for linear and conv, N(0, 0.02) for embeddings and the GPT
@@ -70,6 +75,63 @@ def _index_tree(tree, i):
     if isinstance(tree, (list, tuple)):
         return [_index_tree(v, i) for v in tree]
     return np.asarray(tree)[i]
+
+
+def to_jax_params(tree):
+    """The port's tree → the JAX package's layout as numpy: the GPT trunk's
+    list of blocks stacked into one dict whose leaves lead with the layers
+    axis (the inverse of ``from_jax_params``; bfloat16 leaves become
+    float32). A tree of Adam moments, which has the parameters' structure,
+    goes across the same way."""
+    if isinstance(tree, dict):
+        out = {}
+        for key, val in tree.items():
+            val = to_jax_params(val)
+            if key == "blocks" and isinstance(val, list) and val and all(
+                    "ln1" in blk for blk in val):           # the GPT trunk
+                val = _stack_trees(val)
+            out[key] = val
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [to_jax_params(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _stack_trees(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], (list, tuple)):
+        return [_stack_trees([t[i] for t in trees])
+                for i in range(len(trees[0]))]
+    return np.stack(trees)
+
+
+def jax_leaves(tree) -> list:
+    """The leaves of a tree in ``jax.tree.flatten`` order: dict keys
+    sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in jax_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in jax_leaves(v)]
+    return [tree]
+
+
+def from_jax_leaves(leaves, like):
+    """The inverse of ``jax_leaves``: ``leaves`` placed into the structure
+    of ``like`` (in the same layout). Returns (tree, leaves left over)."""
+    if isinstance(like, dict):
+        out = {}
+        for k in sorted(like):
+            out[k], leaves = from_jax_leaves(leaves, like[k])
+        return {k: out[k] for k in like}, leaves
+    if isinstance(like, (list, tuple)):
+        out = []
+        for v in like:
+            x, leaves = from_jax_leaves(leaves, v)
+            out.append(x)
+        return out, leaves
+    return leaves[0], leaves[1:]
 
 
 def cast_floating(tree, dtype: torch.dtype):

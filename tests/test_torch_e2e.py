@@ -23,6 +23,7 @@ from index_tts_dubbing_tpu_torch import weights
 from index_tts_dubbing_tpu_torch.engine import decode as pdecode
 from index_tts_dubbing_tpu_torch.engine.tts import IndexTTS as PortTTS
 from index_tts_dubbing_tpu_torch.models import gpt as pgpt
+from index_tts_dubbing_tpu_torch.parallel import mesh as pmesh
 
 GPT_SMALL = dict(model_dim=64, layers=2, heads=4, max_mel_tokens=260,
                  max_text_tokens=50, number_text_tokens=120,
@@ -144,11 +145,12 @@ def test_infer_fast_beam_search_matches_jax(engines):
 
 
 def test_requests_outside_the_slice_raise():
-    """The mesh names its later slice instead of running, and a beam
-    history strategy the decode does not know raises (every JAX strategy
-    runs now: tests/test_torch_histories.py; int8, continuous batching and
-    the v1.0 conditioning: tests/test_torch_quant.py,
-    test_torch_continuous.py, test_torch_legacy_cond.py)."""
+    """A beam history strategy the decode does not know raises, and so does
+    a mesh asked for before a process group exists (the mesh is served:
+    tests/test_torch_mesh_engine.py; every JAX strategy runs:
+    tests/test_torch_histories.py; int8, continuous batching and the v1.0
+    conditioning: tests/test_torch_quant.py, test_torch_continuous.py,
+    test_torch_legacy_cond.py)."""
     pcfg = pconfig.EngineConfig(gpt=pconfig.GPTConfig(**GPT_SMALL),
                                 bigvgan=pconfig.BigVGANConfig(**BV_SMALL))
     eng = PortTTS(config=pcfg, device="cpu", verbose_init=False)
@@ -157,8 +159,8 @@ def test_requests_outside_the_slice_raise():
                              pdecode.SamplingConfig(), torch.zeros(1, 3, 64),
                              torch.ones(1, 3, dtype=torch.bool), None, 3, 0.0,
                              stochastic=False, reorder="bogus")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 14"):
-        PortTTS(config=pcfg, device="cpu", mesh=object())
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        pmesh.make_mesh(1, 1)
 
 
 def _assert_same_tree(a, b, path="params"):
