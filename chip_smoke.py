@@ -22,6 +22,12 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
              plain version, its bound and (for the permutes) a library gather;
              K2 also beside the six convs of its plain version (convs_ms)
              and the bound of its three-pass TF32 arithmetic (bound_tc_ms).
+             k1-stages: K1 against its plain version at the C <= 128
+             stages' shapes (K1_STAGE_SHAPES: 96/48/24 channels at
+             36864/73728/147456 samples, a window batch of 4), which it runs
+             with use_pallas and not fuse_resblocks, float32 and bfloat16
+             within TOL, each timed beside its plain version and bound with
+             its launch plan; K1's float32 ms per window batch on that route.
              k2-widths: K2 against its plain version at C in K2_WIDTHS (2 …
              128, each run on its padded width) × k in (3, 7, 11), float32
              and bfloat16, 2 windows of 4700 samples, timed in float32
@@ -176,6 +182,31 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
                          backward on 1.5 s of the fused window's wav:
                          finite, ms each; the generator total within
                          LOSS_RTOL of the CPU's on 0.25 s.
+9. slice 11 - after slice 10, before the surfaces; the vocoder's switches
+             (use_pallas: K1, fuse_resblocks: K2, edge_exact) and the last
+             modules of the JAX package:
+             switches    - stream_device on the multi request's first row
+                         (600 frames, two window batches) through the bf16
+                         engine's weights with (use_pallas, fuse_resblocks,
+                         edge_exact) = TTT, TFT, FTT and TTF, each counted
+                         from zero: K1 55 / 109 / 0 / 55 and K2 9 / 0 / 9 / 9
+                         per window batch, nothing else; each within
+                         VOCODER_TOL of the exact route EDGE_FRAMES from the
+                         ends, over the whole wav within VOCODER_TOL with
+                         edge_exact and EDGE_TOL without; TTF equal to TTT
+                         bit for bit but for the first and last halo·1024
+                         samples, and different in both;
+             infer_fast-k1 - infer_fast on the one-program flavour (TEXTS[2]
+                         at max_mel_tokens=256) with tts.vocoder set to TFT:
+                         K1 109 per window batch, K2 none, the usual int16
+                         checks, the wav within VOCODER_TOL of the same
+                         vocoder's stream_device;
+             window-ms   - float32 ms of one window batch of 4 through each
+                         setting and the exact route, and of the edge patches;
+             heads       - the conformer's five other input layers (idim
+                         100, odim 512) and ECAPA's classifier head (512 →
+                         1211, lin_blocks 0 and 1) on the card within
+                         HEADS_TOL of the CPU, the masks equal.
 Then one JSON line describing the kernels and, last, the device line.
 Float32 convs and products run without TF32 throughout (set below), so the
 plain versions are float32 references.
@@ -216,7 +247,8 @@ from index_tts_dubbing_tpu_torch.engine.tts import IndexTTS
 from index_tts_dubbing_tpu_torch.eval import speaker_sim
 from index_tts_dubbing_tpu_torch.models import bigvgan as bigvgan_mod
 from index_tts_dubbing_tpu_torch.models import bigvgan_disc as disc
-from index_tts_dubbing_tpu_torch.models import dvae
+from index_tts_dubbing_tpu_torch.models import conformer
+from index_tts_dubbing_tpu_torch.models import dvae, ecapa
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
 from index_tts_dubbing_tpu_torch.models import legacy_cond
 from index_tts_dubbing_tpu_torch.ops import cuda_lib
@@ -240,6 +272,9 @@ WINDOW_BATCH = 4                 # windows per vocoder call in the checks
 # K1 per window batch: 18 activations in each C > 128 stage, plus act_post
 K1_SHAPES = [(768, 576, 18), (384, 2304, 18), (192, 9216, 18), (24, 147456, 1)]
 # K2 per window batch: one resblock per kernel size in each C <= 128 stage
+# K1 per window batch also at the C <= 128 stages when it runs without K2
+# (use_pallas without fuse_resblocks): 18 activations a stage, 109 in all
+K1_STAGE_SHAPES = [(96, 36864, 18), (48, 73728, 18), (24, 147456, 18)]
 K2_SHAPES = [(c, t, k) for c, t in ((96, 36864), (48, 73728), (24, 147456))
              for k in (3, 7, 11)]
 DILS = (1, 3, 5)
@@ -450,6 +485,40 @@ def check_kernels(gen: torch.Generator):
             out["resblock_cmajor"].append(row)
         del x, ref, got
     return out
+
+
+def check_k1_stages(gen: torch.Generator) -> list:
+    """K1 against its plain version at the C <= 128 stages' shapes
+    (K1_STAGE_SHAPES, one window batch of 4), float32 and bfloat16, within
+    TOL; each timed beside its plain version and its bound, with its launch
+    plan."""
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dt).element_size()
+        for c, t, per_batch in K1_STAGE_SHAPES:
+            x = rand(WINDOW_BATCH, c, t).to(dt)
+            al, be = rand(c) * 0.3, rand(c) * 0.3
+            ref = k1.snake_cmajor_plain(x, al, be, True).float()
+            got = k1.snake_cmajor(x, al, be, True).float()
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            lim = TOL[dt] * max(1.0, ref.abs().max().item())
+            if not err <= lim:
+                raise AssertionError(f"K1 {dt} C={c} T={t}: err {err} > {lim}")
+            vec, lanes, passes, chunk = k1.launch_plan(x)
+            n = WINDOW_BATCH * c * t
+            bound, by = bound_ms(2 * n * es + 8 * c, n * ACT_OPS)
+            rows.append({
+                "dtype": str(dt), "C": c, "T": t, "per_batch": per_batch,
+                "max_abs_err": err, "tol": lim, "vec": vec, "lanes": lanes,
+                "passes": passes, "chunk": chunk,
+                "ms": cuda_ms(lambda: k1.snake_cmajor(x, al, be, True), 10),
+                "plain_ms": cuda_ms(
+                    lambda: k1.snake_cmajor_plain(x, al, be, True), 3),
+                "bound_ms": bound, "bound_by": by})
+            del x, ref, got
+    return rows
 
 
 # K2 at every width class it is built for and between them (C is padded to
@@ -840,7 +909,8 @@ def check_vocoder(tts: IndexTTS) -> float:
     got = tts.vocoder.stream_device(lat, np.array([frames]), spk=spk)
     ref = voc_mod._vocode_window_cmajor(
         tts.params["bigvgan"], tts.bigvgan_cfg,
-        lat.to(tts.vocoder.compute_dtype), spk, use_kernels=False)[0]
+        lat.to(tts.vocoder.compute_dtype), spk, use_pallas=False,
+        fuse_resblocks=False)[0]
     err = float(np.abs(got - ref.float().cpu().numpy()).max())
     if not err <= VOCODER_TOL:
         raise AssertionError(f"windowed vocoder vs exact: {err} > {VOCODER_TOL}")
@@ -913,9 +983,10 @@ def run_vocoder_ref(tts: IndexTTS) -> dict:
             "vs_exact_whole": whole, "forward_vs_window": fwd_err}
 
 
-def run_path(tts: IndexTTS, call):
+def run_path(tts: IndexTTS, call, need=("snake_cmajor", "resblock_cmajor")):
     """One request of the engine with every launch count set to 0 just
-    before it: (its output, the counts, a report). K1 and K2 must launch."""
+    before it: (its output, the counts, a report). Every kernel in ``need``
+    (K1 and K2 by default) must launch."""
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
@@ -923,7 +994,7 @@ def run_path(tts: IndexTTS, call):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    if min(counts["snake_cmajor"], counts["resblock_cmajor"]) < 1:
+    if min(counts[name] for name in need) < 1:
         raise AssertionError(f"vocoder kernels did not launch: {counts}")
     lt = tts.last_times
     frames = np.asarray(tts.last_sentence_frames)
@@ -1459,7 +1530,7 @@ def run_small(prompt: str):
     spk = tts._speaker(tts._cond_mel(prompt))
     exact = voc_mod._vocode_window_cmajor(
         tts.params["bigvgan"], tts.bigvgan_cfg, stream[None].float(), spk,
-        use_kernels=False)[0].cpu().numpy()
+        use_pallas=False, fuse_resblocks=False)[0].cpu().numpy()
     got = res.wav[: t * voc.upsample].cpu().numpy()
     err = float(np.abs(got - exact).max())
     if not err <= VOCODER_TOL:
@@ -2288,6 +2359,206 @@ def run_train_vocoder(wav: np.ndarray):
     return out
 
 
+# slice11: the vocoder's switches (use_pallas, fuse_resblocks, edge_exact)
+SWITCHES = [(True, True, True), (True, False, True), (False, True, True),
+            (True, True, False)]
+# (K1, K2) launches per window batch at full width by (use_pallas,
+# fuse_resblocks): K1 on every activation outside a fused resblock
+PER_BATCH = {(True, True): (55, 9), (True, False): (109, 0),
+             (False, True): (0, 9)}
+# full-width conformer input layers and classifier head, card vs CPU in
+# float32 (no TF32): |card - cpu| <= HEADS_TOL * max(1, max|cpu|)
+HEADS_TOL = 1e-4
+CONV_STACKS = {"conv2d_subsample3": [("conv", 5, 3)],
+               "conv2d_subsample4": [("conv0", 3, 2), ("conv1", 3, 2)],
+               "conv2d_subsample6": [("conv0", 3, 2), ("conv1", 5, 3)],
+               "conv2d_subsample8": [("conv0", 3, 2), ("conv1", 3, 2),
+                                     ("conv2", 3, 2)]}
+
+
+def label(setting) -> str:
+    """"TFT" for (use_pallas, fuse_resblocks, edge_exact) = (1, 0, 1)."""
+    return "".join("TF"[not flag] for flag in setting)
+
+
+def switched(tts: IndexTTS, setting, params=None, dtype=None):
+    use_pallas, fuse_resblocks, edge_exact = setting
+    return voc_mod.WindowedVocoder(
+        params if params is not None else tts.params["bigvgan"],
+        tts.bigvgan_cfg, compute_dtype=dtype or tts.dtype,
+        use_pallas=use_pallas, fuse_resblocks=fuse_resblocks,
+        edge_exact=edge_exact)
+
+
+def run_switches(tts: IndexTTS, res, spk: torch.Tensor):
+    """stream_device on the multi request's first row (600 frames, two
+    window batches) through a vocoder of each of SWITCHES, counted from
+    zero: K1 and K2 as PER_BATCH per window batch, nothing else. Each held
+    to the exact route over the whole stream in one piece: within
+    VOCODER_TOL at least EDGE_FRAMES from the ends, and over the whole wav
+    within VOCODER_TOL with edge_exact (the ends patched), EDGE_TOL without.
+    (T, T, F) equals (T, T, T) bit for bit but for the first and last
+    halo·upsample samples, and differs in both."""
+    frames = int(res.lens[0])
+    lat = res.lat[:1, :frames]
+    up = tts.vocoder.upsample
+    exact = voc_mod._vocode_window_cmajor(
+        tts.params["bigvgan"], tts.bigvgan_cfg, lat.to(tts.dtype), spk,
+        use_pallas=False, fuse_resblocks=False)[0].float().cpu().numpy()
+    paths, wavs, out = {}, {}, {}
+    for setting in SWITCHES:
+        name = label(setting)
+        voc = switched(tts, setting)
+        batches = len(list(voc._plan_batches(voc._window_list(frames))))
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        wav = voc.stream_device(lat, np.array([frames]), spk=spk)
+        stream_s = time.perf_counter() - t0
+        counts = read_counts()
+        n1, n2 = PER_BATCH[setting[:2]]
+        want = {k: 0 for k in COUNTED}
+        want.update(snake_cmajor=n1 * batches, resblock_cmajor=n2 * batches)
+        if counts != want:
+            raise AssertionError(f"switches {name}: launches {counts}, want "
+                                 f"{want}")
+        if wav.shape != (frames * up,) or not np.isfinite(wav).all():
+            raise AssertionError(f"switches {name}: wav {wav.shape}")
+        diff = np.abs(wav - exact)
+        inner = float(diff[EDGE_FRAMES * up: (frames - EDGE_FRAMES) * up]
+                      .max())
+        whole = float(diff.max())
+        if not (inner <= VOCODER_TOL
+                and whole <= (VOCODER_TOL if setting[2] else EDGE_TOL)):
+            raise AssertionError(f"switches {name} vs exact: interior "
+                                 f"{inner}, whole {whole}")
+        paths[f"slice11/stream/{name}"] = counts
+        wavs[name] = wav
+        out[name] = {"window_batches": batches, "stream_s": stream_s,
+                     "launches": {k: v for k, v in counts.items() if v},
+                     "vs_exact_interior": inner, "vs_exact_whole": whole}
+    h = voc.halo * up
+    a, b = wavs["TTF"], wavs["TTT"]
+    if not np.array_equal(a[h:-h], b[h:-h]):
+        raise AssertionError("switches: TTF and TTT differ away from the ends")
+    ends = [float(np.abs(a[:h] - b[:h]).max()),
+            float(np.abs(a[-h:] - b[-h:]).max())]
+    if min(ends) == 0.0:
+        raise AssertionError(f"switches: TTF equals TTT at an end {ends}")
+    return paths, {"frames": frames, **out, "TTF_vs_TTT_ends": ends}
+
+
+def run_fused_k1_only(tts: IndexTTS, prompt: str, spk: torch.Tensor):
+    """infer_fast on the one-program flavour (TEXTS[2] at max_mel_tokens=256)
+    with ``tts.vocoder`` set to (use_pallas, not fuse_resblocks,
+    edge_exact): K1 109 per window batch, K2 none; the usual int16 checks
+    and the wav within VOCODER_TOL of the same vocoder's stream_device."""
+    engine_voc = tts.vocoder
+    voc = tts.vocoder = switched(tts, (True, False, True))
+    try:
+        (sr, wav), counts, rep = run_path(
+            tts, lambda: tts.infer_fast(prompt, TEXTS[2], max_mel_tokens=256),
+            need=("snake_cmajor",))
+    finally:
+        tts.vocoder = engine_voc
+    expect("infer_fast-k1", tts, "fused", "fused")
+    res = tts.last_fused_res
+    lens = res.lens.cpu().numpy()
+    windows = res.wav.numel() // (voc.window * voc.upsample)
+    batches = len(list(voc._plan_batches(list(range(windows)))))
+    want = {k: 0 for k in COUNTED}
+    want["snake_cmajor"] = PER_BATCH[(True, False)][0] * batches
+    if counts != want:
+        raise AssertionError(f"infer_fast-k1: launches {counts}, want {want}")
+    t = int(res.stream_frames)
+    check_audio("infer_fast-k1", sr, wav, lens.sum(), voc.upsample)
+    fwav = res.wav.cpu().numpy()
+    check_finite("infer_fast-k1", fwav[: t * voc.upsample])
+    if not np.array_equal(res.wav_i16.cpu().numpy(), to_i16(fwav)):
+        raise AssertionError("infer_fast-k1: wav_i16 is not clip(wav·32767)")
+    if not np.array_equal(wav[:, 0], to_i16(fwav[: t * voc.upsample])):
+        raise AssertionError("infer_fast-k1: the output is not the device's "
+                             "int16")
+    ref = voc.stream_device(res.lat, lens, order=np.arange(3), spk=spk)
+    err = float(np.abs(fwav[: t * voc.upsample] - ref).max())
+    if not err <= VOCODER_TOL:
+        raise AssertionError(f"infer_fast-k1 vs stream_device: {err}")
+    rep.update(rows=3, windows=windows, window_batches=batches,
+               stream_frames=t, vs_stream_device=err)
+    return counts, rep
+
+
+def run_switch_timing(tts: IndexTTS, res, spk: torch.Tensor) -> dict:
+    """Float32 ms (host, synchronised) of one window batch of 4 windows of
+    the multi request's latents through each of SWITCHES and the exact
+    route, on the engine's vocoder weights cast to float32; the edge
+    patches' ms (two 2·halo-frame patches, the exact route) beside them."""
+    p32 = weights.cast_floating(tts.params["bigvgan"], torch.float32)
+    voc = tts.vocoder
+    full = voc.window + 2 * voc.halo
+    lo = np.linspace(0, int(res.lens[0]) - full, WINDOW_BATCH).astype(int)
+    lat = res.lat[0].float()
+    win = torch.stack([lat[s: s + full] for s in lo])
+    patches = win[:2, : 2 * voc.halo]
+    out = {}
+    for setting in SWITCHES + [(False, False, False)]:
+        v = switched(tts, setting, p32, torch.float32)
+        out[f"{label(setting)}_window_batch_ms"] = _wall_ms(
+            lambda: v._vocode(win, spk, exact=False), reps=5)
+    out["edge_patches_ms"] = _wall_ms(
+        lambda: v._vocode(patches, spk[:1], exact=True), reps=5)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_heads() -> dict:
+    """The conformer's input layers (idim 100, odim 512, 120 frames, the
+    second row padded from frame 90) and ECAPA's classifier head (512 →
+    1211, lin_blocks 0 and 1) on the card in float32 against the CPU, on
+    weights from seed 0: within HEADS_TOL, the masks equal."""
+    gen = torch.Generator().manual_seed(0)
+    r = weights.Init(gen, "cpu")
+    idim, odim = 100, 512
+    x = torch.randn(2, 120, idim, generator=gen)
+    mask = torch.ones(2, 120, dtype=torch.bool)
+    mask[1, 90:] = False
+    cases = {"linear_no_subsample": (
+        {"out": r.linear(idim, odim), "ln": r.layer_norm(odim)}, x, mask)}
+    for name, convs in CONV_STACKS.items():
+        p, cin, f = {}, 1, idim
+        for key, k, st in convs:
+            p[key] = r.conv2d(cin, odim, k, k)
+            cin, f = odim, (f - k) // st + 1
+        p["out"] = r.linear(odim * f, odim)
+        cases[name] = (p, x, mask)
+    for blocks in (0, 1):
+        cases[f"classifier_lin_blocks_{blocks}"] = (
+            weights.init_ecapa_classifier(r, 512, blocks, 192, 1211),
+            torch.randn(4, 1, 512, generator=gen), None)
+    to_card = lambda tree: weights.from_jax_params(tree, device="cuda")
+    out = {}
+    for name, (p, xi, m) in cases.items():
+        if m is None:
+            ref = ecapa.classifier_forward(p, xi)
+            got = ecapa.classifier_forward(to_card(p), xi.cuda())
+        else:
+            fn = getattr(conformer, name)
+            ref, rmask = fn(p, xi, m)
+            got, gmask = fn(to_card(p), xi.cuda(), m.cuda())
+            if not torch.equal(gmask.cpu(), rmask):
+                raise AssertionError(f"heads {name}: masks differ")
+        torch.cuda.synchronize()
+        err = (got.cpu() - ref).abs().max().item()
+        lim = HEADS_TOL * max(1.0, ref.abs().max().item())
+        if got.shape != ref.shape or not err <= lim:
+            raise AssertionError(f"heads {name}: {tuple(got.shape)}, err "
+                                 f"{err} > {lim}")
+        out[name] = {"shape": list(got.shape), "max_abs_err": err}
+    return out
+
+
 def run_trace(tts: IndexTTS, prompt: str, tmp: Path) -> dict:
     """One request's gpt_gen split into conditioning, prefill + decode, trim
     and latent pass, stage by stage. Then TRACE_STEPS decode steps (from
@@ -2422,6 +2693,17 @@ def main() -> int:
                  for r in rows} for n, rows in checks.items()}
     phase("kernels/vocoder", t0, f"max_abs_err {json.dumps(worst)}")
     t1 = time.perf_counter()
+    k1_stages = check_k1_stages(torch.Generator("cuda").manual_seed(5))
+    f32 = [r for r in checks["snake_cmajor"] + k1_stages
+           if r["dtype"] == "torch.float32"]
+    phase("kernels/k1-stages", t1, json.dumps({
+        "k1_alone_ms_per_window_batch": sum(r["ms"] * r["per_batch"]
+                                            for r in f32),
+        "shapes": [{k: r[k] for k in ("dtype", "C", "T", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms", "lanes",
+                                      "passes", "chunk")}
+                   for r in k1_stages]}))
+    t1 = time.perf_counter()
     k2_widths = check_k2_widths(torch.Generator("cuda").manual_seed(4))
     phase("kernels/k2-widths", t1, json.dumps([
         {k: r[k] for k in ("C", "Cp", "k", "tt", "max_abs_err", "ms",
@@ -2483,6 +2765,7 @@ def main() -> int:
         ref_report = run_vocoder_ref(tts)
         paths["vocoder-ref"] = ref_report["launches"]
         phase("main/vocoder-ref", t1, json.dumps(ref_report))
+        multi = tts.last_fused_res          # slice11 vocodes its first row
 
         spk = tts.vocoder.speaker_embedding(tts._cond_mel(prompt).transpose(1, 2))
         for name, run in (("fused", lambda: run_fused(tts, prompt, spk)),
@@ -2538,6 +2821,22 @@ def main() -> int:
         phase("slice10/train-vocoder", t1,
               json.dumps(run_train_vocoder(fused_wav)))
         phase("slice10", t0)
+
+        t0 = time.perf_counter()
+        t1 = time.perf_counter()
+        switch_paths, report = run_switches(tts, multi, spk)
+        paths.update(switch_paths)
+        phase("slice11/switches", t1, json.dumps(report))
+        t1 = time.perf_counter()
+        paths["slice11/infer_fast-k1"], report = run_fused_k1_only(
+            tts, prompt, spk)
+        phase("slice11/infer_fast-k1", t1, json.dumps(report))
+        t1 = time.perf_counter()
+        phase("slice11/window-ms", t1,
+              json.dumps(run_switch_timing(tts, multi, spk)))
+        t1 = time.perf_counter()
+        phase("slice11/heads", t1, json.dumps(run_heads()))
+        phase("slice11", t0)
 
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as model_dir:
@@ -2599,6 +2898,7 @@ def main() -> int:
                                    "history in launches_by_path "
                                    "(slice9/histories/*, bf16 sampling)")
     kernels[1]["widths"] = k2_widths
+    kernels[0]["c_le_128_stages"] = k1_stages
     kernels[0]["ragged"] = ragged["snake_cmajor"]
     kernels[2]["ragged"] = ragged["snake_clast"]
     kernels[4]["launches_by_path"] = gathers

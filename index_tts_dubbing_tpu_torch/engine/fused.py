@@ -10,10 +10,11 @@ between the stages:
   flavour: the engine reads the lengths once and vocodes through
   ``WindowedVocoder.stream_device``);
 - ``vocode_fused`` is the rest of JAX's ``synthesize_fused``: the window
-  plan over the virtual stream, the windows on kernels K1/K2, the exact edge
-  patches and the int16 emission, all at shapes set by (batch, steps) and
-  the window count alone. ``synthesize_fused`` of JAX is the two in turn,
-  which ``IndexTTS.synthesize_fused`` runs.
+  plan over the virtual stream, the windows on the kernels the vocoder's
+  switches pick (K1, K2), the exact edge patches and the int16 emission,
+  all at shapes set by (batch, steps) and the window count alone.
+  ``synthesize_fused`` of JAX is the two in turn, which
+  ``IndexTTS.synthesize_fused`` runs.
 """
 from __future__ import annotations
 
@@ -89,9 +90,10 @@ def vocode_fused(voc: WindowedVocoder, res: FusedLatResult,
     stream are junk and their outputs lie past ``stream_frames·upsample``.
     JAX clamps out-of-range gathers by itself; every index here is clamped
     explicitly, so no gather leaves its tensor. The windows run on the
-    kernels in batches of at most ``voc.max_batch``; the first and last
-    ``halo`` frames are then overwritten by the exact route, as
-    ``stream_device`` does."""
+    vocoder's switches (``use_pallas``: K1, ``fuse_resblocks``: K2) in
+    batches of at most ``voc.max_batch``; the first and last ``halo``
+    frames are then overwritten by the exact route where ``stream_device``
+    would (``edge_exact`` on a kernel route, JAX ``fused.py:206``)."""
     lat, lens = res.lat, res.lens.long()
     b, mb, c = lat.shape
     dev = lat.device
@@ -128,19 +130,20 @@ def vocode_fused(voc: WindowedVocoder, res: FusedLatResult,
         wav[s:e] = torch.gather(wav_w, 1, oidx[s:e])
     wav = wav.reshape(-1)
 
-    # stream-boundary patches of 2·halo frames through the exact route; each
-    # keeps its boundary half (JAX fused.py:206-230)
-    pw = 2 * halo
-    ar = torch.arange(pw, device=dev)
-    lidx = flatmap[ar.clamp(max=p_total - 1)]
-    ridx = flatmap[(t - pw + ar).clamp(0, p_total - 1)]
-    ewav = voc._vocode(flat[torch.stack([lidx, ridx])], spk[:1],
-                       exact=True).float()
-    n_half = halo * up
-    wav[:n_half] = ewav[0, :n_half]
-    # dynamic_update_slice clamps its start so the update fits
-    start = ((t - halo) * up).clamp(0, wav.numel() - n_half)
-    wav[start + torch.arange(n_half, device=dev)] = ewav[1, n_half:]
+    if voc.edge_exact and voc._edge_approx():
+        # stream-boundary patches of 2·halo frames through the exact route;
+        # each keeps its boundary half (JAX fused.py:206-230)
+        pw = 2 * halo
+        ar = torch.arange(pw, device=dev)
+        lidx = flatmap[ar.clamp(max=p_total - 1)]
+        ridx = flatmap[(t - pw + ar).clamp(0, p_total - 1)]
+        ewav = voc._vocode(flat[torch.stack([lidx, ridx])], spk[:1],
+                           exact=True).float()
+        n_half = halo * up
+        wav[:n_half] = ewav[0, :n_half]
+        # dynamic_update_slice clamps its start so the update fits
+        start = ((t - halo) * up).clamp(0, wav.numel() - n_half)
+        wav[start + torch.arange(n_half, device=dev)] = ewav[1, n_half:]
 
     # the emission scaling on the device: float → int16 truncates toward
     # zero, as JAX's convert and numpy's astype do

@@ -13,10 +13,14 @@ Counterpart of the JAX package's ``engine/tts.py``:
   with ``continuous=True`` every sentence goes through continuous-batching
   slots (engine/continuous.py) on the staged route.
 
-Every route vocodes through the windowed C-major vocoder on kernels K1 and
-K2. The decode is the reference's default, beam sampling with
-``num_beams=3``, or beam search (``do_sample=False``), or with
-``num_beams=1`` sampling or greedy; the report names the one that ran.
+Every route vocodes through ``self.vocoder``, the windowed C-major vocoder
+on kernels K1 and K2, and reads its switches (``use_pallas``,
+``fuse_resblocks``, ``edge_exact``) off it, so a caller who sets
+``tts.vocoder = WindowedVocoder(..., fuse_resblocks=False)`` gets that
+route on every entry point. The decode is the reference's default, beam
+sampling with ``num_beams=3``, or beam search (``do_sample=False``), or
+with ``num_beams=1`` sampling or greedy; the report names the one that
+ran.
 
 ``IndexTTS(mesh=make_mesh(data, model))`` (parallel/mesh.py) serves every
 entry point on a mesh: the GPT tensor-parallel over ``model``, each decode

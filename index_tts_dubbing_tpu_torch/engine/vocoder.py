@@ -7,20 +7,26 @@ runs BigVGAN, and the halo-cropped outputs are stitched. Two layouts:
 
 - ``"cmajor"`` (the default, and the engine's vocoder, as the JAX package's
   on its own accelerator, ``vocoder.py:376-400``): each window batch runs
-  as (B, C, T) with kernel K1 (ops/snake_cmajor.py) for every anti-aliased
-  activation of the C > 128 stages and ``act_post``, and kernel K2
-  (ops/resblock_cmajor.py) for every whole resblock of the C ≤ 128 stages.
-  The kernels replicate-pad where the reference zero-pads each conv, which
-  is exact wherever a true stream boundary is ≥ halo away. So the first and
-  last ``halo`` frames of the stream are re-vocoded by the exact route
-  (plain torch, zero-pad convs, ``use_kernels=False``) on two patches of
-  2·halo frames and written over the fast output
-  (``_apply_edge_patches``).
+  as (B, C, T). Two switches, JAX's, pick the kernels: ``fuse_resblocks``
+  runs every whole resblock of the C ≤ 128 stages as kernel K2
+  (ops/resblock_cmajor.py), and ``use_pallas`` runs every other
+  anti-aliased activation (all of them without ``fuse_resblocks``, else
+  those of the C > 128 stages and ``act_post``) as kernel K1
+  (ops/snake_cmajor.py). With both off the window is the exact route
+  (plain torch, zero-pad convs). The kernels replicate-pad where the
+  reference zero-pads each conv, which is exact wherever a true stream
+  boundary is ≥ halo away. So with ``edge_exact`` (the default whenever a
+  kernel runs) the first and last ``halo`` frames of the stream are
+  re-vocoded by the exact route on two patches of 2·halo frames and
+  written over the fast output (``_apply_edge_patches``), and a stream of
+  at most one window vocodes by the exact route; without it the ends keep
+  the kernels' edge semantics.
 - ``"ref"``: each window batch runs the reference-structured channels-last
   BigVGAN (models/bigvgan.py, ``_vocode_window``), whose activations take
-  kernel B3 (ops/snake_clast.py) when ``cfg.use_pallas`` is set. As in the
-  JAX package, no edge patches are applied, so with B3 the outputs within
-  its edge span of the true stream ends are B3's.
+  kernel B3 (ops/snake_clast.py) when ``cfg.use_pallas`` is set. The three
+  switches change nothing here and, as in the JAX package, no edge patches
+  are applied, so with B3 the outputs within its edge span of the true
+  stream ends are B3's.
 
 ``fuse_bigvgan_params`` + ``_vocode_window_fused`` are the "ref" window's
 grouped form (each stage's resblock branches as one grouped conv per
@@ -91,15 +97,16 @@ def pack_fused_resblocks(params: Dict[str, Any], cfg: BigVGANConfig,
 
 def _vocode_window_cmajor(params: Dict[str, Any], cfg: BigVGANConfig,
                          latent: torch.Tensor, spk: torch.Tensor,
-                         use_kernels: bool = True,
+                         use_pallas: bool = True,
+                         fuse_resblocks: bool = True,
                          packed: Optional[Dict[int, Tuple]] = None
                          ) -> torch.Tensor:
     """Windows (B, W, gpt_dim) + speaker embedding ((1|B), 1, spk_dim) →
-    wav (B, W·1024), entirely in the (B, C, T) layout. ``use_kernels``: K1
-    for the C > 128 stages' activations and act_post, K2 for the C ≤ 128
-    stages' resblocks; False is the exact route. ``packed``: K2's weights
-    from ``pack_fused_resblocks`` for the compute dtype (None packs
-    inline)."""
+    wav (B, W·1024), entirely in the (B, C, T) layout. ``fuse_resblocks``:
+    K2 for each resblock of the C ≤ 128 stages; ``use_pallas``: K1 for
+    every activation outside those (JAX ``vocoder.py:285-304``); both off
+    is the exact route. ``packed``: K2's weights from
+    ``pack_fused_resblocks`` for the compute dtype (None packs inline)."""
     if spk.shape[0] == 1 and latent.shape[0] > 1:
         spk = spk.expand((latent.shape[0],) + spk.shape[1:])
     spk_cm = spk.transpose(1, 2)
@@ -118,7 +125,7 @@ def _vocode_window_cmajor(params: Dict[str, Any], cfg: BigVGANConfig,
             rb = params["resblocks"][idx]
             kk = cfg.resblock_kernel_sizes[j]
             dils = tuple(cfg.resblock_dilation_sizes[j])
-            if use_kernels and x.shape[1] <= 128:
+            if fuse_resblocks and x.shape[1] <= 128:
                 w = (packed[idx] if packed is not None
                      else pack_resblock(rb, cfg, x.dtype))
                 y = resblock_cmajor(x, *w, kk, dils)
@@ -127,14 +134,14 @@ def _vocode_window_cmajor(params: Dict[str, Any], cfg: BigVGANConfig,
                 for c1, c2, a1, a2, d in zip(rb["convs1"], rb["convs2"],
                                              rb["acts"][::2], rb["acts"][1::2],
                                              dils):
-                    yt = _act_cm(cfg, a1, y, use_kernels)
+                    yt = _act_cm(cfg, a1, y, use_pallas)
                     yt = _conv1d_cm(c1, yt, dilation=d, padding=(kk * d - d) // 2)
-                    yt = _act_cm(cfg, a2, yt, use_kernels)
+                    yt = _act_cm(cfg, a2, yt, use_pallas)
                     yt = _conv1d_cm(c2, yt, padding=(kk - 1) // 2)
                     y = yt + y
             xs = y if xs is None else xs + y
         x = xs / cfg.num_kernels
-    x = _act_cm(cfg, params["act_post"], x, use_kernels)
+    x = _act_cm(cfg, params["act_post"], x, use_pallas)
     x = _conv1d_cm(params["conv_post"], x, padding=3)
     return torch.tanh(x)[:, 0, :]
 
@@ -261,12 +268,20 @@ LAYOUTS = ("cmajor", "ref")
 class WindowedVocoder:
     """Vocode latent streams of any length through fixed-size windows in
     batches of power-of-two sizes (largest ≤ ``max_batch`` first).
-    ``layout``: "cmajor" (None means it, on every device) or "ref"."""
+    ``layout``: "cmajor" (None means it, on every device) or "ref".
+    ``use_pallas`` (K1) and ``fuse_resblocks`` (K2) default to on, on every
+    device: a wrapper launches its kernel on a CUDA tensor and takes its
+    plain version on a CPU one. ``edge_exact`` defaults to ``use_pallas or
+    fuse_resblocks`` (JAX ``vocoder.py:399-400``). On "ref" the three
+    change nothing."""
 
     def __init__(self, params: Dict[str, Any], cfg: BigVGANConfig,
                  window: int = 112, halo: int = DEFAULT_HALO,
                  max_batch: int = 32, compute_dtype=torch.float32,
-                 layout: Optional[str] = None):
+                 layout: Optional[str] = None,
+                 use_pallas: Optional[bool] = None,
+                 fuse_resblocks: Optional[bool] = None,
+                 edge_exact: Optional[bool] = None):
         layout = layout or "cmajor"
         if layout not in LAYOUTS:
             raise ValueError(f"layout {layout!r} is not one of {LAYOUTS}")
@@ -279,6 +294,11 @@ class WindowedVocoder:
         self.max_batch = max_batch
         self.compute_dtype = compute_dtype
         self.upsample = int(np.prod(cfg.upsample_rates))
+        self.use_pallas = True if use_pallas is None else use_pallas
+        self.fuse_resblocks = (True if fuse_resblocks is None
+                               else fuse_resblocks)
+        self.edge_exact = (self.use_pallas or self.fuse_resblocks
+                           if edge_exact is None else edge_exact)
         self._packed: Dict[torch.dtype, Dict[int, Tuple]] = {}
 
     def speaker_embedding(self, mel_ref: torch.Tensor) -> torch.Tensor:
@@ -286,16 +306,33 @@ class WindowedVocoder:
 
     def _vocode(self, windows: torch.Tensor, spk: torch.Tensor,
                 exact: bool) -> torch.Tensor:
+        """One window batch on the layout's window function; on "cmajor"
+        ``exact`` forces the exact route, else the switches pick the
+        kernels (JAX ``_vocode_fn``)."""
         if self.layout == "ref":
             return _vocode_window(self.params, self.cfg, windows, spk)
         if exact:
             return _vocode_window_cmajor(self.params, self.cfg, windows, spk,
-                                        use_kernels=False)
-        dt = torch.promote_types(windows.dtype, spk.dtype)
-        if dt not in self._packed:
-            self._packed[dt] = pack_fused_resblocks(self.params, self.cfg, dt)
+                                        use_pallas=False,
+                                        fuse_resblocks=False)
+        packed = None
+        if self.fuse_resblocks:
+            dt = torch.promote_types(windows.dtype, spk.dtype)
+            if dt not in self._packed:
+                self._packed[dt] = pack_fused_resblocks(self.params,
+                                                        self.cfg, dt)
+            packed = self._packed[dt]
         return _vocode_window_cmajor(self.params, self.cfg, windows, spk,
-                                    use_kernels=True, packed=self._packed[dt])
+                                    use_pallas=self.use_pallas,
+                                    fuse_resblocks=self.fuse_resblocks,
+                                    packed=packed)
+
+    def _edge_approx(self) -> bool:
+        """True when the windows' route departs from the exact one at a
+        true stream boundary (a kernel replicate-pads where the exact route
+        zero-pads each conv): the case the edge patches correct."""
+        return self.layout == "cmajor" and (self.use_pallas
+                                            or self.fuse_resblocks)
 
     # -- window plan ---------------------------------------------------
     def _window_list(self, t: int) -> List[Tuple[int, int, int]]:
@@ -334,7 +371,10 @@ class WindowedVocoder:
         route's outputs over 2·halo-frame patches at the two stream ends;
         each patch keeps its boundary half, whose other edge is ≥ halo from
         every kept sample. ``fetch(lo, pw)`` returns latent frames
-        [lo, lo+pw) as (pw, C)."""
+        [lo, lo+pw) as (pw, C). Only with ``edge_exact`` on a route that
+        departs from the exact one at the ends (JAX ``vocoder.py:514``)."""
+        if not (self.edge_exact and self._edge_approx()):
+            return
         pw = 2 * self.halo
         up = self.upsample
         patches = torch.stack([fetch(0, pw), fetch(t - pw, pw)])
@@ -362,8 +402,9 @@ class WindowedVocoder:
         """Vocode the stream concat(lat[order[s], :lens[order[s]]]) that lives
         on the device: lat (rows, MB, C), lens (rows,) host ints. Windows are
         gathered on the device; the stitched float32 wav comes back to the
-        host once. A stream no longer than one window runs at its own length
-        (on "cmajor" by the exact route)."""
+        host once. A stream no longer than one window runs at its own length,
+        all of it boundary: by the exact route with ``edge_exact``, else by
+        the switches' kernels (JAX ``vocoder.py:447-455``)."""
         lens = np.asarray(lens, np.int64)
         order = (np.arange(lens.size) if order is None
                  else np.asarray(order, np.int64))
@@ -384,14 +425,13 @@ class WindowedVocoder:
         full = self.window + 2 * self.halo
         if t <= full:
             stream = flat[flatmap][None]
-            wav = self._vocode(stream, spk[:1], exact=True)[0]
+            wav = self._vocode(stream, spk[:1], exact=self.edge_exact)[0]
             return wav.float().cpu().numpy()
         out = torch.empty(t * self.upsample, dtype=torch.float32, device=dev)
         for chunk in self._plan_batches(self._window_list(t)):
             idx = torch.stack([flatmap[lo: lo + full] for (_, _, lo) in chunk])
             wavs = self._vocode(flat[idx], spk, exact=False).float()
             self._collect(out, chunk, wavs)
-        if self.layout == "cmajor":
-            self._apply_edge_patches(
-                out, t, lambda lo, pw: flat[flatmap[lo: lo + pw]], spk)
+        self._apply_edge_patches(
+            out, t, lambda lo, pw: flat[flatmap[lo: lo + pw]], spk)
         return out.cpu().numpy()

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``models/conformer.py``: conv2d2
 subsampling, rel-pos MHA without rel_shift, SiLU, no macaron, conv module
-kernel 15, normalize_before, inference only.
+kernel 15, normalize_before, inference only. The other input layers of the
+reference (linear, conv2d3/4/6/8) are here too; ``forward`` uses conv2d2.
 """
 from __future__ import annotations
 
@@ -28,15 +29,58 @@ def sinusoidal_pos(max_len: int, d_model: int) -> np.ndarray:
     return pe
 
 
-def conv2d_subsample2(p: Params, x: torch.Tensor, mask: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Conv2d(1→odim, k3, s2) → ReLU → linear over (odim · freq').
-    x (B, T, F) → (B, T', odim); mask (B, T) → (B, T') via [2::2]."""
-    h = torch.relu(nn.conv2d(p["conv"], x[..., None], stride=(2, 2)))
+def _conv2d_stack(p: Params, x: torch.Tensor, keys, strides) -> torch.Tensor:
+    """x (B, T, F) as one input channel → a VALID Conv2d → ReLU per (key,
+    stride) → the linear over (odim · freq') → (B, T', odim)."""
+    h = x[..., None]
+    for key, s in zip(keys, strides):
+        h = torch.relu(nn.conv2d(p[key], h, stride=(s, s)))
     b, t2, f2, c = h.shape
     # channel-major flatten, as torch's view(b, t, c*f) after transpose
-    h = h.permute(0, 1, 3, 2).reshape(b, t2, c * f2)
-    return nn.linear(p["out"], h), mask[:, 2::2]
+    return nn.linear(p["out"], h.permute(0, 1, 3, 2).reshape(b, t2, c * f2))
+
+
+def conv2d_subsample2(p: Params, x: torch.Tensor, mask: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Conv2dSubsampling2, the input layer of ``forward``: one k3-s2 conv
+    → ×1/2; mask (B, T) → (B, T') via [2::2]."""
+    return _conv2d_stack(p, x, ("conv",), (2,)), mask[:, 2::2]
+
+
+# The reference's other input layers (wenet subsampling.py), which its
+# config does not select (JAX ``models/conformer.py:54-108``).
+
+def linear_no_subsample(p: Params, x: torch.Tensor, mask: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LinearNoSubsampling: linear → layer norm; the mask unchanged."""
+    return nn.layer_norm(p["ln"], nn.linear(p["out"], x)), mask
+
+
+def conv2d_subsample3(p: Params, x: torch.Tensor, mask: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Conv2dSubsampling3: one k5-s3 conv → ×1/3; mask [:-2:3]."""
+    return _conv2d_stack(p, x, ("conv",), (3,)), mask[:, :-2:3]
+
+
+def conv2d_subsample4(p: Params, x: torch.Tensor, mask: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Conv2dSubsampling4: two k3-s2 convs → ×1/4."""
+    return (_conv2d_stack(p, x, ("conv0", "conv1"), (2, 2)),
+            mask[:, 2::2][:, 2::2])
+
+
+def conv2d_subsample6(p: Params, x: torch.Tensor, mask: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Conv2dSubsampling6: k3-s2 then k5-s3 → ×1/6."""
+    return (_conv2d_stack(p, x, ("conv0", "conv1"), (2, 3)),
+            mask[:, 2::2][:, 4::3])
+
+
+def conv2d_subsample8(p: Params, x: torch.Tensor, mask: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Conv2dSubsampling8: three k3-s2 convs → ×1/8."""
+    return (_conv2d_stack(p, x, ("conv0", "conv1", "conv2"), (2, 2, 2)),
+            mask[:, 2::2][:, 2::2][:, 2::2])
 
 
 def rel_pos_mha(p: Params, x: torch.Tensor, pos_emb: torch.Tensor,

@@ -1,6 +1,6 @@
 """ECAPA-TDNN speaker encoder, inference only (batch norms use running
-statistics). Counterpart of the JAX package's ``models/ecapa.py``;
-activations are (B, T, C)."""
+statistics), and the reference's cosine classifier head. Counterpart of
+the JAX package's ``models/ecapa.py``; activations are (B, T, C)."""
 from __future__ import annotations
 
 from typing import Any, Dict, List
@@ -85,3 +85,15 @@ def forward(params: Params, mel: torch.Tensor) -> torch.Tensor:
                     DILATIONS[-1])
     x = nn.batch_norm(params["asp_bn"], _asp(params["asp"], x))
     return nn.conv1d(params["fc"], x)
+
+
+def classifier_forward(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The reference's cosine speaker classifier head (training only; no
+    inference path calls it): optional (BatchNorm1d → Linear) blocks, then
+    normalize(x) · normalize(W)ᵀ with norms floored at 1e-12.
+    x (B, 1, D) → (B, 1, out)."""
+    for blk in params.get("blocks", []):
+        x = nn.linear(blk["lin"], nn.batch_norm(blk["bn"], x))
+    h = F.normalize(x[:, 0, :], dim=-1, eps=1e-12)
+    w = F.normalize(params["weight"].to(x.dtype), dim=-1, eps=1e-12)
+    return (h @ w.T)[:, None, :]

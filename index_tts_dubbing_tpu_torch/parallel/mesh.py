@@ -87,8 +87,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
 def make_mesh(data: Optional[int] = None, model: int = 1,
               devices: Optional[str] = None):
     """A (data, model) DeviceMesh over the initialised world, ``data``
-    defaulting to world // model. ``devices``: the device type ("cuda" or
-    "cpu"; default "cuda" when a card is visible)."""
+    defaulting to world // model. ``devices``: the device type, "cuda" (the
+    default; raises when no card is visible) or "cpu"."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
@@ -99,8 +99,10 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
         data = n // model
     if data * model != n:
         raise ValueError(f"{data}x{model} != {n} ranks")
-    if devices is None:
-        devices = "cuda" if torch.cuda.is_available() else "cpu"
+    devices = devices or "cuda"
+    if devices == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: no CUDA device is visible; pass "
+                           'devices="cpu" for a mesh on the CPU')
     return init_device_mesh(devices, (data, model), mesh_dim_names=AXES)
 
 

@@ -303,6 +303,25 @@ def init_ecapa(r: Init, input_size: int, lin_neurons: int) -> Params:
     }
 
 
+def init_ecapa_classifier(r: Init, input_size: int, lin_blocks: int = 0,
+                          lin_neurons: int = 192, out_neurons: int = 1211
+                          ) -> Params:
+    """``ecapa.classifier_forward``'s tree, with JAX ``classifier_init``'s
+    keys, shapes and Glorot-uniform limits."""
+    p: Params = {"blocks": []}
+    d = input_size
+    for _ in range(lin_blocks):
+        p["blocks"].append({
+            "bn": r.batch_norm(d),
+            "lin": {"w": r.uniform((d, lin_neurons),
+                                   math.sqrt(6.0 / (d + lin_neurons))),
+                    "b": r.zeros(lin_neurons)}})
+        d = lin_neurons
+    p["weight"] = r.uniform((out_neurons, d),
+                            math.sqrt(6.0 / (out_neurons + d)))
+    return p
+
+
 def _snake(r: Init, ch: int, cfg: BigVGANConfig) -> Params:
     a = r.zeros(ch) if cfg.snake_logscale else r.ones(ch)
     p = {"alpha": a}
