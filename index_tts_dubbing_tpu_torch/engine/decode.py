@@ -32,6 +32,7 @@ from index_tts_dubbing_tpu_torch.config import GPTConfig
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
 from index_tts_dubbing_tpu_torch.ops import permute
 from index_tts_dubbing_tpu_torch.parallel import mesh as tp
+from index_tts_dubbing_tpu_torch.utils import profiling
 
 SEG_PAD, SEG_COND, SEG_TEXT = 0, 1, 2
 # decode steps between host checks of "every row finished": the check syncs
@@ -246,17 +247,6 @@ def _generate(params, cfg, sc, prefix_emb, pad_keep, generator, live,
     dev = prefix_emb.device
     max_steps = sc.max_mel_tokens
     s_total = s0 + max_steps
-    cache = gpt_model.init_cache(cfg, b, s_total, prefix_emb.dtype, dev)
-    h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep, cache)
-    # slot validity: prefix pads stay masked, generated slots open as the
-    # loop advances
-    keep = torch.cat([pad_keep, torch.zeros((b, max_steps), dtype=torch.bool,
-                                            device=dev)], dim=1)
-    rows = torch.arange(b, device=dev)
-    seen = torch.zeros((b, cfg.number_mel_codes), dtype=torch.bool, device=dev)
-    seen[:, sc.fake_prefix_id] = True
-    seen[:, cfg.start_mel_token] = True
-    stop = torch.full((), cfg.stop_mel_token, dtype=torch.long, device=dev)
 
     def sample_token(hidden):
         logits = _process_logits(
@@ -267,28 +257,48 @@ def _generate(params, cfg, sc, prefix_emb, pad_keep, generator, live,
                                                 generator=generator))[:, 0]
         return torch.argmax(logits, dim=-1)
 
-    tok = sample_token(h)
-    if live is not None:
-        tok = torch.where(live, tok, stop)
-    done = tok == stop
-    tokens = torch.full((b, max_steps), cfg.stop_mel_token, dtype=torch.long,
-                        device=dev)
-    tokens[:, 0] = tok
-    seen[rows, tok] = True
+    with profiling.span("decode.prefill", device=dev):
+        cache = gpt_model.init_cache(cfg, b, s_total, prefix_emb.dtype, dev)
+        h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep, cache)
+        # slot validity: prefix pads stay masked, generated slots open as the
+        # loop advances
+        keep = torch.cat([pad_keep, torch.zeros((b, max_steps),
+                                                dtype=torch.bool,
+                                                device=dev)], dim=1)
+        rows = torch.arange(b, device=dev)
+        seen = torch.zeros((b, cfg.number_mel_codes), dtype=torch.bool,
+                           device=dev)
+        seen[:, sc.fake_prefix_id] = True
+        seen[:, cfg.start_mel_token] = True
+        stop = torch.full((), cfg.stop_mel_token, dtype=torch.long,
+                          device=dev)
+        tok = sample_token(h)
+        if live is not None:
+            tok = torch.where(live, tok, stop)
+        done = tok == stop
+        tokens = torch.full((b, max_steps), cfg.stop_mel_token,
+                            dtype=torch.long, device=dev)
+        tokens[:, 0] = tok
+        seen[rows, tok] = True
     j = 1
     while j < max_steps:
-        if j % _DONE_CHECK_EVERY == 0 and part.all_done(done):
-            break
-        # previous token at mel position j+1 (parity quirk)
-        emb = (params["mel_emb"]["w"][tok]
-               + params["mel_pos"]["w"][j + 1]).to(prefix_emb.dtype)
-        slot = s0 + j - 1
-        keep[:, slot] = True
-        hh = gpt_model.trunk_decode_step(params, cfg, emb, cache, slot, keep)
-        tok = torch.where(done, stop, sample_token(hh))
-        done = done | (tok == stop)
-        tokens[:, j] = tok
-        seen[rows, tok] = True
+        if j % _DONE_CHECK_EVERY == 0:
+            with profiling.sync("done"):
+                finished = part.all_done(done)
+            if finished:
+                break
+        with profiling.span("decode.step"):
+            # previous token at mel position j+1 (parity quirk)
+            emb = (params["mel_emb"]["w"][tok]
+                   + params["mel_pos"]["w"][j + 1]).to(prefix_emb.dtype)
+            slot = s0 + j - 1
+            keep[:, slot] = True
+            hh = gpt_model.trunk_decode_step(params, cfg, emb, cache, slot,
+                                             keep)
+            tok = torch.where(done, stop, sample_token(hh))
+            done = done | (tok == stop)
+            tokens[:, j] = tok
+            seen[rows, tok] = True
         j += 1
     is_stop = tokens == cfg.stop_mel_token
     first_stop = torch.argmax(is_stop.int(), dim=1)
@@ -477,37 +487,6 @@ def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
     norms = torch.arange(1, max_steps + 1, dtype=torch.float32,
                          device=dev).pow(float(length_penalty))
 
-    keep_full = None
-    if reorder in _LEGACY:
-        full = gpt_model.init_cache(cfg, b, s_total, dtype, dev)
-        h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep, full)
-        # a row's beams are contiguous (row-major (B, nb))
-        cache = gpt_model.KVCache(full.k.repeat_interleave(nb, dim=1),
-                                  full.v.repeat_interleave(nb, dim=1))
-        del full
-        keep_full = torch.cat([pad_keep.repeat_interleave(nb, dim=0),
-                               torch.ones((bn, max_steps), dtype=torch.bool,
-                                          device=dev)], dim=1)
-    else:
-        pcache = gpt_model.init_cache(cfg, b, s0, dtype, dev)
-        h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep, pcache)
-        if ancfull:
-            shape = (cfg.layers, b, gpt_model.local_heads(cfg), nb, s_total,
-                     cfg.head_dim)
-            kf = torch.zeros(shape, dtype=dtype, device=dev)
-            vf = torch.zeros(shape, dtype=dtype, device=dev)
-            kf[:, :, :, :, :s0] = pcache.k[:, :, :, None]
-            vf[:, :, :, :, :s0] = pcache.v[:, :, :, None]
-            cache = gpt_model.KVCache(kf, vf)
-            keep_full = torch.cat([pad_keep, torch.ones(
-                (b, max_steps), dtype=torch.bool, device=dev)], dim=1)
-        else:
-            kg, vg = (gpt_model.init_gen_cache_anc(cfg, b, nb, max_steps,
-                                                   dtype, dev) if anc else
-                      gpt_model.init_gen_cache(cfg, bn, max_steps, dtype, dev))
-            cache = gpt_model.SplitCache(pcache.k, pcache.v, kg, vg)
-        del pcache
-
     def penalised_logp(hid, seen):
         logits = gpt_model.mel_logits_from_hidden(params, hid).float()
         logp = torch.log_softmax(logits, dim=-1)
@@ -691,45 +670,85 @@ def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
         return gpt_model.trunk_decode_step(params, cfg, emb, st.cache, slot,
                                            keep)
 
-    seen = torch.zeros((bn, vocab), dtype=torch.bool, device=dev)
-    seen[:, sc.fake_prefix_id] = True
-    seen[:, cfg.start_mel_token] = True
-    if stochastic or nb == 1:
-        beam_scores = torch.zeros((bn,), dtype=torch.float32, device=dev)
-    else:
-        beam_scores = torch.full((b, nb), _BEAM_NEG, dtype=torch.float32,
-                                 device=dev)
-        beam_scores[:, 0] = 0.0
-        beam_scores = beam_scores.reshape(bn)
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    if live is not None:
-        done = done | ~live
-    st = SimpleNamespace(
-        cache=cache,
-        tokens=torch.full((bn, max_steps), stop, dtype=torch.long, device=dev),
-        seen=seen, beam_scores=beam_scores, prev=None, done=done,
-        pool_norm=torch.full((b, nb), float("-inf"), device=dev),
-        pool_tok=torch.full((b, nb, max_steps), stop, dtype=torch.long,
-                            device=dev),
-        pool_len=torch.zeros((b, nb), dtype=torch.long, device=dev),
-        # cof: logical → physical and physical → logical row maps
-        m=rows_bn, inv=rows_bn,
-        # anc: (B, nb, G) logical beam × gen slot → physical beam in its
-        # row; ancfull: the same over the absolute slots (B, nb, S0 + G)
-        amap=beams[None, :, None].expand(
-            b, nb, s_total if ancfull else max_steps).contiguous())
-    del cache
+    with profiling.span("decode.prefill", device=dev):
+        keep_full = None
+        if reorder in _LEGACY:
+            full = gpt_model.init_cache(cfg, b, s_total, dtype, dev)
+            h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep,
+                                        full)
+            # a row's beams are contiguous (row-major (B, nb))
+            cache = gpt_model.KVCache(full.k.repeat_interleave(nb, dim=1),
+                                      full.v.repeat_interleave(nb, dim=1))
+            del full
+            keep_full = torch.cat([pad_keep.repeat_interleave(nb, dim=0),
+                                   torch.ones((bn, max_steps),
+                                              dtype=torch.bool, device=dev)],
+                                  dim=1)
+        else:
+            pcache = gpt_model.init_cache(cfg, b, s0, dtype, dev)
+            h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep,
+                                        pcache)
+            if ancfull:
+                shape = (cfg.layers, b, gpt_model.local_heads(cfg), nb,
+                         s_total, cfg.head_dim)
+                kf = torch.zeros(shape, dtype=dtype, device=dev)
+                vf = torch.zeros(shape, dtype=dtype, device=dev)
+                kf[:, :, :, :, :s0] = pcache.k[:, :, :, None]
+                vf[:, :, :, :, :s0] = pcache.v[:, :, :, None]
+                cache = gpt_model.KVCache(kf, vf)
+                keep_full = torch.cat([pad_keep, torch.ones(
+                    (b, max_steps), dtype=torch.bool, device=dev)], dim=1)
+            else:
+                kg, vg = (gpt_model.init_gen_cache_anc(cfg, b, nb, max_steps,
+                                                       dtype, dev) if anc else
+                          gpt_model.init_gen_cache(cfg, bn, max_steps, dtype,
+                                                   dev))
+                cache = gpt_model.SplitCache(pcache.k, pcache.v, kg, vg)
+            del pcache
+        seen = torch.zeros((bn, vocab), dtype=torch.bool, device=dev)
+        seen[:, sc.fake_prefix_id] = True
+        seen[:, cfg.start_mel_token] = True
+        if stochastic or nb == 1:
+            beam_scores = torch.zeros((bn,), dtype=torch.float32, device=dev)
+        else:
+            beam_scores = torch.full((b, nb), _BEAM_NEG, dtype=torch.float32,
+                                     device=dev)
+            beam_scores[:, 0] = 0.0
+            beam_scores = beam_scores.reshape(bn)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        if live is not None:
+            done = done | ~live
+        st = SimpleNamespace(
+            cache=cache,
+            tokens=torch.full((bn, max_steps), stop, dtype=torch.long,
+                              device=dev),
+            seen=seen, beam_scores=beam_scores, prev=None, done=done,
+            pool_norm=torch.full((b, nb), float("-inf"), device=dev),
+            pool_tok=torch.full((b, nb, max_steps), stop, dtype=torch.long,
+                                device=dev),
+            pool_len=torch.zeros((b, nb), dtype=torch.long, device=dev),
+            # cof: logical → physical and physical → logical row maps
+            m=rows_bn, inv=rows_bn,
+            # anc: (B, nb, G) logical beam × gen slot → physical beam in its
+            # row; ancfull: the same over the absolute slots (B, nb, S0 + G)
+            amap=beams[None, :, None].expand(
+                b, nb, s_total if ancfull else max_steps).contiguous())
+        del cache
 
-    logp = penalised_logp(h.repeat_interleave(nb, dim=0), st.seen)
-    process(st, *select_candidates(logp, st.beam_scores), 0)
+        logp = penalised_logp(h.repeat_interleave(nb, dim=0), st.seen)
+        process(st, *select_candidates(logp, st.beam_scores), 0)
     j = 1
     while j < max_steps:
-        if j % _DONE_CHECK_EVERY == 0 and part.all_done(st.done):
-            break
-        emb = (params["mel_emb"]["w"][st.prev]
-               + params["mel_pos"]["w"][j + 1]).to(dtype)
-        logp = penalised_logp(trunk_step(st, emb, j), st.seen)
-        process(st, *select_candidates(logp, st.beam_scores), j)
+        if j % _DONE_CHECK_EVERY == 0:
+            with profiling.sync("done"):
+                finished = part.all_done(st.done)
+            if finished:
+                break
+        with profiling.span("decode.step"):
+            emb = (params["mel_emb"]["w"][st.prev]
+                   + params["mel_pos"]["w"][j + 1]).to(dtype)
+            logp = penalised_logp(trunk_step(st, emb, j), st.seen)
+            process(st, *select_candidates(logp, st.beam_scores), j)
         j += 1
 
     # finalize: open beams of rows not done join the pool at max_steps

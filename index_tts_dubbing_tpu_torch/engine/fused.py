@@ -26,6 +26,7 @@ from index_tts_dubbing_tpu_torch.config import GPTConfig
 from index_tts_dubbing_tpu_torch.engine import decode as decode_mod
 from index_tts_dubbing_tpu_torch.engine.vocoder import WindowedVocoder
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
+from index_tts_dubbing_tpu_torch.utils import profiling
 
 
 class FusedLatResult(NamedTuple):
@@ -66,8 +67,9 @@ def synthesize_fused_lat(gpt_params: Dict[str, Any], gpt_cfg: GPTConfig,
     from index_tts_dubbing_tpu_torch.engine.tts import (
         remove_long_silence_device)
     b = ids.shape[0]
-    emb, keep = decode_mod.build_prefix_emb(gpt_params, gpt_cfg, conds, ids,
-                                            pos, seg, cond_idx)
+    with profiling.span("decode.prefill", device=ids.device):
+        emb, keep = decode_mod.build_prefix_emb(gpt_params, gpt_cfg, conds,
+                                                ids, pos, seg, cond_idx)
     if num_beams > 1:
         res = decode_mod._beam_decode(gpt_params, gpt_cfg, sc, emb, keep,
                                       generator, num_beams, length_penalty,
@@ -75,11 +77,14 @@ def synthesize_fused_lat(gpt_params: Dict[str, Any], gpt_cfg: GPTConfig,
     else:
         res = decode_mod.generate(gpt_params, gpt_cfg, sc, emb, keep,
                                   generator, live=live)
-    codes, lens = remove_long_silence_device(res.codes, gpt_cfg.stop_mel_token)
-    if conds.shape[0] == 1 and b > 1:
-        conds = conds.expand((b,) + conds.shape[1:])
-    lat = gpt_model.forward_latent_bucketed(gpt_params, gpt_cfg, conds,
-                                            text_ids, text_lens, codes, lens)
+    with profiling.span("latent", device=ids.device):
+        codes, lens = remove_long_silence_device(res.codes,
+                                                 gpt_cfg.stop_mel_token)
+        if conds.shape[0] == 1 and b > 1:
+            conds = conds.expand((b,) + conds.shape[1:])
+        lat = gpt_model.forward_latent_bucketed(gpt_params, gpt_cfg, conds,
+                                                text_ids, text_lens, codes,
+                                                lens)
     return FusedLatResult(res.codes, res.lengths, lens, lat, res.steps)
 
 
@@ -124,26 +129,28 @@ def vocode_fused(voc: WindowedVocoder, res: FusedLatResult,
                 0, full * up - 1)
     wav = torch.empty((num_windows, window * up), dtype=torch.float32,
                       device=dev)
-    for chunk in voc._plan_batches(list(range(num_windows))):
-        s, e = chunk[0], chunk[-1] + 1
-        wav_w = voc._vocode(flat[idx[s:e]], spk, exact=False).float()
-        wav[s:e] = torch.gather(wav_w, 1, oidx[s:e])
+    with profiling.span("vocoder.plan", device=dev):
+        for chunk in voc._plan_batches(list(range(num_windows))):
+            s, e = chunk[0], chunk[-1] + 1
+            wav_w = voc._vocode(flat[idx[s:e]], spk, exact=False).float()
+            wav[s:e] = torch.gather(wav_w, 1, oidx[s:e])
     wav = wav.reshape(-1)
 
     if voc.edge_exact and voc._edge_approx():
         # stream-boundary patches of 2·halo frames through the exact route;
         # each keeps its boundary half (JAX fused.py:206-230)
-        pw = 2 * halo
-        ar = torch.arange(pw, device=dev)
-        lidx = flatmap[ar.clamp(max=p_total - 1)]
-        ridx = flatmap[(t - pw + ar).clamp(0, p_total - 1)]
-        ewav = voc._vocode(flat[torch.stack([lidx, ridx])], spk[:1],
-                           exact=True).float()
-        n_half = halo * up
-        wav[:n_half] = ewav[0, :n_half]
-        # dynamic_update_slice clamps its start so the update fits
-        start = ((t - halo) * up).clamp(0, wav.numel() - n_half)
-        wav[start + torch.arange(n_half, device=dev)] = ewav[1, n_half:]
+        with profiling.span("vocoder.exact", device=dev):
+            pw = 2 * halo
+            ar = torch.arange(pw, device=dev)
+            lidx = flatmap[ar.clamp(max=p_total - 1)]
+            ridx = flatmap[(t - pw + ar).clamp(0, p_total - 1)]
+            ewav = voc._vocode(flat[torch.stack([lidx, ridx])], spk[:1],
+                               exact=True).float()
+            n_half = halo * up
+            wav[:n_half] = ewav[0, :n_half]
+            # dynamic_update_slice clamps its start so the update fits
+            start = ((t - halo) * up).clamp(0, wav.numel() - n_half)
+            wav[start + torch.arange(n_half, device=dev)] = ewav[1, n_half:]
 
     # the emission scaling on the device: float → int16 truncates toward
     # zero, as JAX's convert and numpy's astype do

@@ -30,6 +30,7 @@ same wav.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, replace
 from pathlib import Path
@@ -51,6 +52,7 @@ from index_tts_dubbing_tpu_torch.ops.mel import MelSpectrogram
 from index_tts_dubbing_tpu_torch.parallel import mesh as mesh_lib
 from index_tts_dubbing_tpu_torch.utils import audio as audio_util
 from index_tts_dubbing_tpu_torch.utils import convert
+from index_tts_dubbing_tpu_torch.utils import profiling
 from index_tts_dubbing_tpu_torch.utils.checkpoint import (flatten_tree,
                                                           load_params)
 from index_tts_dubbing_tpu_torch.utils.front import (TextNormalizer,
@@ -234,6 +236,18 @@ class CharTokenizer:
             tokens, self.punctuation_marks_tokens, max_tokens_per_sentence)
 
 
+def _request(entry: str):
+    """The public call ``entry`` as the root span ``request``
+    (utils/profiling.py)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(self, *args, **kwargs):
+            with profiling.span("request", entry=entry):
+                return fn(self, *args, **kwargs)
+        return call
+    return wrap
+
+
 @dataclass
 class StageTimes:
     gpt_gen: float = 0.0        # decode (+ trim + latent pass on the fused route)
@@ -404,9 +418,11 @@ class IndexTTS:
                                               device=self.device)
 
     def _conditioning(self, cond_mel: torch.Tensor) -> torch.Tensor:
-        lens = torch.tensor([cond_mel.shape[-1]], device=self.device)
-        return gpt_model.get_conditioning(self.params["gpt"], self.gpt_cfg,
-                                          cond_mel.transpose(1, 2), lens)
+        with profiling.span("cond", device=self.device):
+            lens = torch.tensor([cond_mel.shape[-1]], device=self.device)
+            return gpt_model.get_conditioning(self.params["gpt"],
+                                              self.gpt_cfg,
+                                              cond_mel.transpose(1, 2), lens)
 
     def _sampling_config(self, kw: Dict[str, Any]) -> SamplingConfig:
         # reference defaults: num_beams=3 with do_sample=True is beam
@@ -414,7 +430,7 @@ class IndexTTS:
         # sampling or greedy
         self._num_beams = kw.pop("num_beams", 3)
         self._length_penalty = kw.pop("length_penalty", 0.0)
-        return SamplingConfig(
+        sc = SamplingConfig(
             do_sample=kw.pop("do_sample", True),
             top_p=kw.pop("top_p", 0.8),
             top_k=kw.pop("top_k", 30),
@@ -426,6 +442,8 @@ class IndexTTS:
             typical_sampling=kw.pop("typical_sampling", False),
             typical_mass=kw.pop("typical_mass", 0.9),
         )
+        profiling.annotate(cap=sc.max_mel_tokens)
+        return sc
 
     def _ids(self, sentence: List[str]) -> np.ndarray:
         return np.asarray(self.tokenizer.convert_tokens_to_ids(sentence),
@@ -450,8 +468,9 @@ class IndexTTS:
         """AR decode of a batch of token rows at a bucketed text width:
         (codes (n, steps), lengths (n,)) on the host."""
         res, n_real = self._decode_batch_async(conds, token_rows, sc)
-        return (res.codes[:n_real].cpu().numpy(),
-                res.lengths[:n_real].cpu().numpy())
+        with profiling.sync("codes"):
+            return (res.codes[:n_real].cpu().numpy(),
+                    res.lengths[:n_real].cpu().numpy())
 
     def _decode_batch_async(self, conds: torch.Tensor,
                             token_rows: List[np.ndarray], sc: SamplingConfig
@@ -476,9 +495,10 @@ class IndexTTS:
                                              pad_to=pad_to)
         dev = lambda k: torch.as_tensor(pre[k].astype(np.int64),
                                         device=self.device)
-        emb, keep = decode_mod.build_prefix_emb(
-            self.params["gpt"], self.gpt_cfg, conds, dev("ids"), dev("pos"),
-            dev("seg"), dev("cond_idx"))
+        with profiling.span("decode.prefill", device=self.device):
+            emb, keep = decode_mod.build_prefix_emb(
+                self.params["gpt"], self.gpt_cfg, conds, dev("ids"),
+                dev("pos"), dev("seg"), dev("cond_idx"))
         args = (self.params["gpt"], self.gpt_cfg, sc, emb, keep)
         kw = dict(live=live, mesh=self.mesh)
         beam = dict(num_beams=self._num_beams,
@@ -538,7 +558,8 @@ class IndexTTS:
         batched pass per bucket shape; (code_len, C) per row on the host."""
         lat, lens, inv = self._latents_batch_device(conds, rows,
                                                     bucket_rows=False)
-        latnp = lat.float().cpu().numpy()
+        with profiling.sync("latents"):
+            latnp = lat.float().cpu().numpy()
         return [latnp[inv[i], : int(lens[inv[i]])] for i in range(len(rows))]
 
     def _latents_batch_device(self, conds: torch.Tensor, rows,
@@ -621,8 +642,9 @@ class IndexTTS:
             tlens[i] = r.size
         dev = lambda a: torch.as_tensor(np.asarray(a, np.int64),
                                         device=self.device)
-        out = {k: dev(pre[k]) for k in ("ids", "pos", "seg", "cond_idx")}
-        out.update(text=dev(text), text_lens=dev(tlens))
+        with profiling.sync("h2d"):
+            out = {k: dev(pre[k]) for k in ("ids", "pos", "seg", "cond_idx")}
+            out.update(text=dev(text), text_lens=dev(tlens))
         return out
 
     def _pad_batch(self, rows: List[np.ndarray]
@@ -632,7 +654,9 @@ class IndexTTS:
         n_real = len(rows)
         n_pad = next(bb for bb in self.FUSED_BATCH_BUCKETS if bb >= n_real)
         rows = list(rows) + [np.array([2], np.int32)] * (n_pad - n_real)
-        live = torch.as_tensor(np.arange(n_pad) < n_real, device=self.device)
+        with profiling.sync("h2d"):
+            live = torch.as_tensor(np.arange(n_pad) < n_real,
+                                   device=self.device)
         return rows, live
 
     def fused_batch(self, rows: List[np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -673,30 +697,34 @@ class IndexTTS:
         voc = self.vocoder
         if num_windows is None:
             num_windows = -(-len(token_rows) * sc.max_mel_tokens // voc.window)
-        t0 = time.perf_counter()
-        lat_res = self._fused_lat(conds, token_rows, sc, live)
-        if self.device.type == "cuda":     # so the clock covers the decode
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        times.gpt_gen += t1 - t0
-        res = fused_mod.vocode_fused(voc, lat_res, spk, num_windows)
-        t = int(res.stream_frames)                  # the one host sync
-        up = voc.upsample
-        if t < voc.window + 2 * voc.halo:
-            # a stream shorter than one full window: the plan's halo would
-            # read junk where the true boundary is, so re-vocode the stream
-            # at its exact length
-            lens = res.lens.cpu().numpy()
-            latnp = res.lat.float().cpu().numpy()
-            stream = np.concatenate(
-                [latnp[i, : lens[i]] for i in range(len(token_rows))], axis=0)
-            wav = voc(stream, spk=spk[:1])
-            if emit == "i16":
-                wav = _to_i16(wav)
-        else:
-            wav = (res.wav_i16 if emit == "i16" else res.wav)[: t * up]
-            wav = wav.cpu().numpy()
-        times.bigvgan += time.perf_counter() - t1
+        with profiling.stage(times, "gpt_gen"):
+            lat_res = self._fused_lat(conds, token_rows, sc, live)
+            if self.device.type == "cuda":   # so the clock covers the decode
+                with profiling.sync("synchronize"):
+                    torch.cuda.synchronize(self.device)
+        with profiling.stage(times, "bigvgan"):
+            res = fused_mod.vocode_fused(voc, lat_res, spk, num_windows)
+            with profiling.sync("stream_frames"):
+                t = int(res.stream_frames)          # the one host sync
+            up = voc.upsample
+            if t < voc.window + 2 * voc.halo:
+                # a stream shorter than one full window: the plan's halo
+                # would read junk where the true boundary is, so re-vocode
+                # the stream at its exact length
+                with profiling.sync("lens"):
+                    lens = res.lens.cpu().numpy()
+                with profiling.sync("latents"):
+                    latnp = res.lat.float().cpu().numpy()
+                stream = np.concatenate(
+                    [latnp[i, : lens[i]] for i in range(len(token_rows))],
+                    axis=0)
+                wav = voc(stream, spk=spk[:1])
+                if emit == "i16":
+                    wav = _to_i16(wav)
+            else:
+                wav = (res.wav_i16 if emit == "i16" else res.wav)[: t * up]
+                with profiling.sync("wav"):
+                    wav = wav.cpu().numpy()
         return wav, res
 
     def _synthesize_fused_public(self, conds: torch.Tensor,
@@ -711,17 +739,17 @@ class IndexTTS:
         n_real = len(rows)
         rows, live = self._pad_batch(rows)
         if sc.max_mel_tokens > self.FUSED_FULL_VOCODE_MAX_STEPS:
-            t0 = time.perf_counter()
-            res = self._fused_lat(conds, rows, sc, live)
-            lens_all = res.lens.cpu().numpy()        # the one host sync
-            times.gpt_gen += time.perf_counter() - t0
+            with profiling.stage(times, "gpt_gen"):
+                res = self._fused_lat(conds, rows, sc, live)
+                with profiling.sync("lens"):
+                    lens_all = res.lens.cpu().numpy()  # the one host sync
             times.decode_steps += res.steps
             self.last_fused_res = res
             self.last_fused_flavor = "fused+stream"
-            t0 = time.perf_counter()
-            wav = self.vocoder.stream_device(res.lat, lens_all,
-                                             order=np.arange(n_real), spk=spk)
-            times.bigvgan += time.perf_counter() - t0
+            with profiling.stage(times, "bigvgan"):
+                wav = self.vocoder.stream_device(res.lat, lens_all,
+                                                 order=np.arange(n_real),
+                                                 spk=spk)
             self.last_wav = wav
             self.last_sentence_frames = lens_all[:n_real]
             return wav, lens_all[:n_real]
@@ -738,7 +766,8 @@ class IndexTTS:
         times.decode_steps += res.steps
         self.last_fused_res = res
         self.last_fused_flavor = "fused"
-        lens = res.lens[:n_real].cpu().numpy()
+        with profiling.sync("lens"):
+            lens = res.lens[:n_real].cpu().numpy()
         # the float32 wav stays on the device (last_fused_res.wav)
         self.last_wav = None
         self.last_sentence_frames = lens
@@ -750,8 +779,10 @@ class IndexTTS:
             self.gr_progress(value, desc=desc)
 
     def _speaker(self, cond_mel: torch.Tensor) -> torch.Tensor:
-        return self.vocoder.speaker_embedding(cond_mel.transpose(1, 2))
+        with profiling.span("speaker", device=self.device):
+            return self.vocoder.speaker_embedding(cond_mel.transpose(1, 2))
 
+    @_request("infer")
     def infer(self, audio_prompt, text, output_path=None, verbose=False,
               max_text_tokens_per_sentence=120, **generation_kwargs):
         """Sequential per-sentence synthesis (reference infer): one decode
@@ -767,23 +798,24 @@ class IndexTTS:
         times.decode = self._decode_name(sc)
 
         self._set_gr_progress(0.1, "text processing...")
-        tokens = self.tokenizer.tokenize(text)
-        sentences = self.tokenizer.split_sentences(
-            tokens, max_text_tokens_per_sentence)
+        with profiling.span("front"):
+            tokens = self.tokenizer.tokenize(text)
+            sentences = self.tokenizer.split_sentences(
+                tokens, max_text_tokens_per_sentence)
+            sent_rows = [self._ids(s) for s in sentences]
         if verbose:
             print(f">> {len(tokens)} tokens, {len(sentences)} sentences")
         sr = self.cfg.mel.sample_rate
         spk = self._speaker(cond_mel)
         lat_rows: List[Tuple[np.ndarray, np.ndarray, int]] = []
-        for si, sent in enumerate(sentences):
+        for si, ids in enumerate(sent_rows):
             self._set_gr_progress(
                 0.2 + 0.6 * si / max(len(sentences), 1),
                 f"gpt inference speech... {si + 1}/{len(sentences)}")
-            ids = self._ids(sent)
-            t0 = time.perf_counter()
-            res, _ = self._decode_batch_async(conds, [ids], sc)
-            codes = res.codes.cpu().numpy()
-            times.gpt_gen += time.perf_counter() - t0
+            with profiling.stage(times, "gpt_gen"):
+                res, _ = self._decode_batch_async(conds, [ids], sc)
+                with profiling.sync("codes"):
+                    codes = res.codes.cpu().numpy()
             times.decode_steps += res.steps
             lat_rows += self._latent_rows(codes, [ids])
         wav = self._vocode_rows(conds, lat_rows, None, spk, times)
@@ -803,9 +835,9 @@ class IndexTTS:
         if progress:
             self._set_gr_progress(0.5, "gpt inference latents...")
         if lat_rows:
-            t0 = time.perf_counter()
-            lat, lens, inv = self._latents_batch_device(conds, lat_rows)
-            times.gpt_forward += time.perf_counter() - t0
+            with profiling.stage(times, "gpt_forward"), \
+                    profiling.span("latent", device=self.device):
+                lat, lens, inv = self._latents_batch_device(conds, lat_rows)
         if progress:
             self._set_gr_progress(0.7, "bigvgan decode...")
         if not lat_rows:
@@ -814,12 +846,12 @@ class IndexTTS:
             return self.last_wav
         order = inv if stream_idx is None else inv[np.argsort(stream_idx)]
         self.last_sentence_frames = lens[order]
-        t0 = time.perf_counter()
-        wav = self.vocoder.stream_device(lat, lens, order=order, spk=spk)
-        times.bigvgan += time.perf_counter() - t0
+        with profiling.stage(times, "bigvgan"):
+            wav = self.vocoder.stream_device(lat, lens, order=order, spk=spk)
         self.last_wav = wav
         return wav
 
+    @_request("infer_fast")
     def infer_fast(self, audio_prompt, text, output_path=None, verbose=False,
                    max_text_tokens_per_sentence=100,
                    sentences_bucket_max_size=4, **generation_kwargs):
@@ -835,11 +867,12 @@ class IndexTTS:
         times.decode = self._decode_name(sc)
 
         self._set_gr_progress(0.1, "text processing...")
-        sentences = self.tokenizer.split_sentences(
-            self.tokenizer.tokenize(text), max_text_tokens_per_sentence)
+        with profiling.span("front"):
+            sentences = self.tokenizer.split_sentences(
+                self.tokenizer.tokenize(text), max_text_tokens_per_sentence)
+            sent_rows = [self._ids(s) for s in sentences]
         sr = self.cfg.mel.sample_rate
         spk = self._speaker(cond_mel)
-        sent_rows = [self._ids(s) for s in sentences]
         if self._fused_eligible(sent_rows):
             self._set_gr_progress(0.2, "gpt inference speech (fused)...")
             wav, _ = self._synthesize_fused_public(conds, sent_rows, sc, spk,
@@ -860,23 +893,23 @@ class IndexTTS:
             print(f">> {len(sentences)} sentences in {len(buckets)} buckets")
         # every bucket's decode runs before any is read back: on the card
         # the host trims bucket k while the device finishes bucket k+1
-        t0 = time.perf_counter()
-        pending = []
-        for bucket in buckets:
-            rows = [self._ids(item["sent"]) for item in bucket]
-            pending.append((bucket, rows,
-                            self._decode_batch_async(conds, rows, sc)))
         all_idx: List[int] = []
         lat_rows: List[Tuple[np.ndarray, np.ndarray, int]] = []
-        for bi, (bucket, rows, (res, n_real)) in enumerate(pending):
-            self._set_gr_progress(
-                0.2 + 0.3 * bi / max(len(pending), 1),
-                f"gpt inference speech... {bi + 1}/{len(pending)}")
-            codes = res.codes[:n_real].cpu().numpy()
-            times.decode_steps += res.steps
-            all_idx += [item["idx"] for item in bucket]
-            lat_rows += self._latent_rows(codes, rows)
-        times.gpt_gen += time.perf_counter() - t0
+        with profiling.stage(times, "gpt_gen"):
+            pending = []
+            for bucket in buckets:
+                rows = [self._ids(item["sent"]) for item in bucket]
+                pending.append((bucket, rows,
+                                self._decode_batch_async(conds, rows, sc)))
+            for bi, (bucket, rows, (res, n_real)) in enumerate(pending):
+                self._set_gr_progress(
+                    0.2 + 0.3 * bi / max(len(pending), 1),
+                    f"gpt inference speech... {bi + 1}/{len(pending)}")
+                with profiling.sync("codes"):
+                    codes = res.codes[:n_real].cpu().numpy()
+                times.decode_steps += res.steps
+                all_idx += [item["idx"] for item in bucket]
+                lat_rows += self._latent_rows(codes, rows)
         wav = self._vocode_rows(conds, lat_rows, all_idx, spk, times,
                                 progress=True)
         self._set_gr_progress(0.9, "save audio...")
@@ -886,6 +919,7 @@ class IndexTTS:
         self._report(times, fast=True)
         return self._emit(wav, sr, output_path)
 
+    @_request("infer_batch")
     def infer_batch(self, audio_prompt, texts: Sequence[str], verbose=False,
                     max_text_tokens_per_sentence=120, continuous=False,
                     cb_slots=8, **generation_kwargs
@@ -910,14 +944,14 @@ class IndexTTS:
         # text with no sentence keeps one empty sentence
         flat_sents: List[List[str]] = []
         owners: List[int] = []
-        for ti, text in enumerate(texts):
-            sents = self.tokenizer.split_sentences(
-                self.tokenizer.tokenize(text),
-                max_text_tokens_per_sentence) or [[]]
-            flat_sents += sents
-            owners += [ti] * len(sents)
-
-        flat_rows = [self._ids(s) for s in flat_sents]
+        with profiling.span("front"):
+            for ti, text in enumerate(texts):
+                sents = self.tokenizer.split_sentences(
+                    self.tokenizer.tokenize(text),
+                    max_text_tokens_per_sentence) or [[]]
+                flat_sents += sents
+                owners += [ti] * len(sents)
+            flat_rows = [self._ids(s) for s in flat_sents]
         if not continuous and self._fused_eligible(flat_rows):
             # sentences are contiguous per text in flat order, so each text
             # is a slice of the stream at its frame offsets
@@ -936,45 +970,45 @@ class IndexTTS:
             self._report(times, fast=True, path="fused")
             return outs
 
-        t0 = time.perf_counter()
         sent_ids: List[int] = []
         lat_rows: List[Tuple[np.ndarray, np.ndarray, int]] = []
-        pending = []
-        if continuous:
-            # every sentence is one request; an empty one decodes as [2]
-            rows = [r if r.size else np.array([2], np.int32)
-                    for r in flat_rows]
-            codes, _ = self._decode_continuous(conds, rows, sc, batch=cb_slots)
-            stats = self.last_cb_stats
-            times.decode = (f"{'sampling' if sc.do_sample else 'greedy'} "
-                            f"(continuous batching, {stats['slots']} slots)")
-            times.decode_steps += stats["steps"]
-            sent_ids = list(range(len(rows)))
-            lat_rows = self._latent_rows(codes, rows)
-            times.gpt_gen += time.perf_counter() - t0
-        else:
-            for bucket in bucket_sentences(flat_sents, bucket_max_size=8):
-                rows = [self._ids(item["sent"]) for item in bucket]
-                if not rows or all(r.size == 0 for r in rows):
-                    continue
-                # an empty sentence in a bucket with others decodes as one
-                # token
+        with profiling.stage(times, "gpt_gen"):
+            if continuous:
+                # every sentence is one request; an empty one decodes as [2]
                 rows = [r if r.size else np.array([2], np.int32)
-                        for r in rows]
-                pending.append((bucket, rows,
-                                self._decode_batch_async(conds, rows, sc)))
-        for bucket, rows, (res, n_real) in pending:
-            codes = res.codes[:n_real].cpu().numpy()
-            times.decode_steps += res.steps
-            sent_ids += [item["idx"] for item in bucket]
-            lat_rows += self._latent_rows(codes, rows)
-        if pending:
-            times.gpt_gen += time.perf_counter() - t0
+                        for r in flat_rows]
+                codes, _ = self._decode_continuous(conds, rows, sc,
+                                                   batch=cb_slots)
+                stats = self.last_cb_stats
+                times.decode = (
+                    f"{'sampling' if sc.do_sample else 'greedy'} "
+                    f"(continuous batching, {stats['slots']} slots)")
+                times.decode_steps += stats["steps"]
+                sent_ids = list(range(len(rows)))
+                lat_rows = self._latent_rows(codes, rows)
+            else:
+                pending = []
+                for bucket in bucket_sentences(flat_sents, bucket_max_size=8):
+                    rows = [self._ids(item["sent"]) for item in bucket]
+                    if not rows or all(r.size == 0 for r in rows):
+                        continue
+                    # an empty sentence in a bucket with others decodes as
+                    # one token
+                    rows = [r if r.size else np.array([2], np.int32)
+                            for r in rows]
+                    pending.append((bucket, rows,
+                                    self._decode_batch_async(conds, rows, sc)))
+                for bucket, rows, (res, n_real) in pending:
+                    with profiling.sync("codes"):
+                        codes = res.codes[:n_real].cpu().numpy()
+                    times.decode_steps += res.steps
+                    sent_ids += [item["idx"] for item in bucket]
+                    lat_rows += self._latent_rows(codes, rows)
         frames = np.zeros(len(flat_sents), np.int64)
         if lat_rows:
-            t0 = time.perf_counter()
-            lat, lens, inv = self._latents_batch_device(conds, lat_rows)
-            times.gpt_forward += time.perf_counter() - t0
+            with profiling.stage(times, "gpt_forward"), \
+                    profiling.span("latent", device=self.device):
+                lat, lens, inv = self._latents_batch_device(conds, lat_rows)
             # input row i (sentence sent_ids[i]) lives in lat row inv[i]
             row_of_sent = dict(zip(sent_ids, inv))
             frames[sent_ids] = lens[inv]
@@ -990,9 +1024,9 @@ class IndexTTS:
             if order.size == 0:
                 outs.append((sr, np.zeros((0, 1), np.int16)))
                 continue
-            t0 = time.perf_counter()
-            wav = self.vocoder.stream_device(lat, lens, order=order, spk=spk)
-            times.bigvgan += time.perf_counter() - t0
+            with profiling.stage(times, "bigvgan"):
+                wav = self.vocoder.stream_device(lat, lens, order=order,
+                                                 spk=spk)
             floats.append(wav)
             outs.append((sr, _to_i16(wav)[:, None]))
         self.last_wav = np.concatenate(floats or [np.zeros(0, np.float32)])
@@ -1030,6 +1064,9 @@ class IndexTTS:
         print(f">> {tag}RTF: {times.rtf:.4f}")
         self.last_times = times
         self.last_path = path
+        profiling.annotate(rows=len(self.last_sentence_frames),
+                           decode_steps=times.decode_steps,
+                           frames=int(np.sum(self.last_sentence_frames)))
 
     def _emit(self, wav_i16: np.ndarray, sr: int, output_path):
         if output_path:

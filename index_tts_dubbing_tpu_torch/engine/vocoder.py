@@ -52,6 +52,7 @@ from index_tts_dubbing_tpu_torch.ops.alias_free import (
     anti_aliased_activation_cmajor)
 from index_tts_dubbing_tpu_torch.ops.resblock_cmajor import (pack_resblock,
                                                              resblock_cmajor)
+from index_tts_dubbing_tpu_torch.utils import profiling
 
 # halo: BigVGAN's receptive field in latent frames, ±12; 16 keeps window
 # seams exact
@@ -377,10 +378,11 @@ class WindowedVocoder:
             return
         pw = 2 * self.halo
         up = self.upsample
-        patches = torch.stack([fetch(0, pw), fetch(t - pw, pw)])
-        ewav = self._vocode(patches, spk[:1], exact=True).float()
-        out[: self.halo * up] = ewav[0, : self.halo * up]
-        out[(t - self.halo) * up: t * up] = ewav[1, self.halo * up:]
+        with profiling.span("vocoder.exact", device=out.device):
+            patches = torch.stack([fetch(0, pw), fetch(t - pw, pw)])
+            ewav = self._vocode(patches, spk[:1], exact=True).float()
+            out[: self.halo * up] = ewav[0, : self.halo * up]
+            out[(t - self.halo) * up: t * up] = ewav[1, self.halo * up:]
 
     def __call__(self, latent, mel_ref=None,
                  spk: Optional[torch.Tensor] = None) -> np.ndarray:
@@ -393,7 +395,8 @@ class WindowedVocoder:
         if spk is None:
             spk = self.speaker_embedding(
                 torch.as_tensor(mel_ref, device=self.device))
-        lat = torch.from_numpy(latent).to(self.device)[None]
+        with profiling.sync("h2d"):
+            lat = torch.from_numpy(latent).to(self.device)[None]
         return self.stream_device(lat, [latent.shape[0]], spk=spk)
 
     def stream_device(self, lat: torch.Tensor, lens, order=None,
@@ -421,17 +424,24 @@ class WindowedVocoder:
         mb = lat.shape[1]
         rows = np.repeat(order, slens)
         cols = np.arange(t) - np.repeat(bounds[:-1], slens)
-        flatmap = torch.as_tensor(rows * mb + cols, device=dev)
+        with profiling.sync("h2d"):
+            flatmap = torch.as_tensor(rows * mb + cols, device=dev)
         full = self.window + 2 * self.halo
         if t <= full:
-            stream = flat[flatmap][None]
-            wav = self._vocode(stream, spk[:1], exact=self.edge_exact)[0]
-            return wav.float().cpu().numpy()
+            route = "vocoder.exact" if self.edge_exact else "vocoder.plan"
+            with profiling.span(route, device=dev):
+                stream = flat[flatmap][None]
+                wav = self._vocode(stream, spk[:1], exact=self.edge_exact)[0]
+            with profiling.sync("wav"):
+                return wav.float().cpu().numpy()
         out = torch.empty(t * self.upsample, dtype=torch.float32, device=dev)
-        for chunk in self._plan_batches(self._window_list(t)):
-            idx = torch.stack([flatmap[lo: lo + full] for (_, _, lo) in chunk])
-            wavs = self._vocode(flat[idx], spk, exact=False).float()
-            self._collect(out, chunk, wavs)
+        with profiling.span("vocoder.plan", device=dev):
+            for chunk in self._plan_batches(self._window_list(t)):
+                idx = torch.stack([flatmap[lo: lo + full]
+                                   for (_, _, lo) in chunk])
+                wavs = self._vocode(flat[idx], spk, exact=False).float()
+                self._collect(out, chunk, wavs)
         self._apply_edge_patches(
             out, t, lambda lo, pw: flat[flatmap[lo: lo + pw]], spk)
-        return out.cpu().numpy()
+        with profiling.sync("wav"):
+            return out.cpu().numpy()
