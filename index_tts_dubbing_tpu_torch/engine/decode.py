@@ -17,9 +17,15 @@ below ``generate``). Semantics kept from the reference:
 Every decode takes ``mesh=``: each data group decodes its contiguous rows
 of the global batch, tensor-parallel over ``model`` (models/gpt.py), and
 the codes are gathered back, as the JAX decode shards its batch.
+
+The beam decode's default history, "anc", keeps its step counter on the
+device as well, so one step reads no host value; given a caller's
+``BeamWorkspaces`` on a card, it captures that step once as a CUDA graph
+per shape and replays it at every later step.
 """
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
@@ -287,7 +293,7 @@ def _generate(params, cfg, sc, prefix_emb, pad_keep, generator, live,
                 finished = part.all_done(done)
             if finished:
                 break
-        with profiling.span("decode.step"):
+        with profiling.span("decode.step", graph=0):
             # previous token at mel position j+1 (parity quirk)
             emb = (params["mel_emb"]["w"][tok]
                    + params["mel_pos"]["w"][j + 1]).to(prefix_emb.dtype)
@@ -433,62 +439,264 @@ def _warp_scores(scores: torch.Tensor, sc: SamplingConfig,
     return scores
 
 
+def _at(x: torch.Tensor, j: gpt_model.Slot) -> torch.Tensor:
+    """``x[j]`` along the first axis; a 0-d device tensor ``j`` is read on
+    the device, with no sync."""
+    if not torch.is_tensor(j):
+        return x[j]
+    return x.index_select(0, j.reshape(1))[0]
+
+
 def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
                  prefix_emb: torch.Tensor, pad_keep: torch.Tensor,
                  generator: Optional[torch.Generator], num_beams: int,
                  length_penalty: float, stochastic: bool,
                  reorder: str = "anc",
                  live: Optional[torch.Tensor] = None,
-                 mesh=None) -> GenerateResult:
+                 mesh=None,
+                 workspaces: Optional[BeamWorkspaces] = None
+                 ) -> GenerateResult:
     """Beam search (``stochastic=False``) or beam sampling; returns the best
     hypothesis per row. prefix_emb (B, S0, C) ends with the start_mel slot;
     ``live`` (B,) bool marks batch-padding rows False, which are done from
     step 0; ``reorder`` names the history strategy (``BEAM_REORDERS``, see
-    above). The step counter stays on the host, and "every row done" is
-    checked on the host every 8 steps. ``mesh``: as in ``generate``; the
-    beams of a row stay on its data group, and "cof" and "cofdense" decode
-    as "split" (as in JAX, kernel B4 serves one card only)."""
+    above). The step counter stays on the host ("anc" also keeps one on
+    the device), and "every row done" is checked on the host every 8
+    steps. ``mesh``: as in ``generate``; the beams of a row stay on its
+    data group, and "cof" and "cofdense" decode as "split" (as in JAX,
+    kernel B4 serves one card only). ``workspaces``: the caller's
+    ``BeamWorkspaces``, where "anc" without a mesh decodes over the
+    workspace of its shape, on a card each step a CUDA graph's replay;
+    without it every step runs eagerly."""
     if reorder not in BEAM_REORDERS:
         raise ValueError(f"unknown beam reorder strategy {reorder!r}: one of "
                          f"{BEAM_REORDERS}")
     if mesh is not None and reorder in ("cof", "cofdense"):
         reorder = "split"
+    if mesh is not None or reorder != "anc":
+        workspaces = None
     with tp.use(mesh):
         return _beam(params, cfg, sc, prefix_emb, pad_keep, generator,
                      num_beams, length_penalty, stochastic, reorder, live,
-                     _Rows(mesh, prefix_emb.shape[0], live))
+                     _Rows(mesh, prefix_emb.shape[0], live), workspaces)
 
 
-def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
-          length_penalty, stochastic, reorder, live, part: _Rows
-          ) -> GenerateResult:
-    prefix_emb, pad_keep, live = (part.local(t) for t in
-                                  (prefix_emb, pad_keep, live))
-    b, s0, _ = prefix_emb.shape
-    dev, dtype = prefix_emb.device, prefix_emb.dtype
-    nb = num_beams
-    bn = b * nb
-    n_cand = 2 * nb
-    max_steps = sc.max_mel_tokens
-    s_total = s0 + max_steps
-    vocab = cfg.number_mel_codes
-    stop = cfg.stop_mel_token
-    anc = reorder in _ANC
-    ancfull = reorder == "ancfull"
-    cof = reorder in ("cof", "cofdense")
+class _Beam:
+    """One beam decode's fixed part: the weights, the settings, the shape
+    (B rows of nb beams, a prefix of S0 slots, G = ``max_mel_tokens``
+    generated ones) and the constants made once on the device. Its methods
+    run the prefill, the steps and the finalize over a state ``st``
+    (``new_state``): every tensor a decode updates. A step updates them in
+    place and never rebinds them, but for the histories whose cache moves
+    ("split", "cof", "cofdense" and the legacy single buffer)."""
 
-    beams = torch.arange(nb, device=dev)
-    row_off = torch.arange(b, device=dev)[:, None] * nb         # (B, 1)
-    rows_bn = torch.arange(bn, device=dev)
-    rank = torch.arange(n_cand, device=dev)[None, :]
-    earlier = torch.ones((nb, nb), dtype=torch.bool, device=dev).tril(-1)
-    # generated_len ** length_penalty for generated_len = 1..max_steps, made
-    # once on the device so that no step copies a host value to the device
-    norms = torch.arange(1, max_steps + 1, dtype=torch.float32,
-                         device=dev).pow(float(length_penalty))
+    def __init__(self, params, cfg: GPTConfig, sc: SamplingConfig,
+                 generator: Optional[torch.Generator], num_beams: int,
+                 length_penalty: float, stochastic: bool, reorder: str,
+                 part: _Rows, b: int, s0: int, dev, dtype):
+        self.params, self.cfg, self.sc = params, cfg, sc
+        self.generator, self.stochastic = generator, stochastic
+        self.reorder, self.part = reorder, part
+        self.b, self.nb, self.s0 = b, num_beams, s0
+        self.bn = b * num_beams
+        self.n_cand = 2 * num_beams
+        self.max_steps = sc.max_mel_tokens
+        self.s_total = s0 + self.max_steps
+        self.vocab = cfg.number_mel_codes
+        self.stop = cfg.stop_mel_token
+        self.dev, self.dtype = dev, dtype
+        self.anc = reorder in _ANC
+        self.ancfull = reorder == "ancfull"
+        self.cof = reorder in ("cof", "cofdense")
+        nb = num_beams
+        self.beams = torch.arange(nb, device=dev)
+        self.row_off = torch.arange(b, device=dev)[:, None] * nb    # (B, 1)
+        self.rows_bn = torch.arange(self.bn, device=dev)
+        self.rank = torch.arange(self.n_cand, device=dev)[None, :]
+        self.earlier = torch.ones((nb, nb), dtype=torch.bool,
+                                  device=dev).tril(-1)
+        self.true = torch.ones((), dtype=torch.bool, device=dev)
+        # generated_len ** length_penalty for generated_len = 1..max_steps,
+        # made once on the device so that no step copies a host value to
+        # the device
+        self.norms = torch.arange(1, self.max_steps + 1, dtype=torch.float32,
+                                  device=dev).pow(float(length_penalty))
 
-    def penalised_logp(hid, seen):
-        logits = gpt_model.mel_logits_from_hidden(params, hid).float()
+    # -- the state --------------------------------------------------------
+    def anc_cache(self) -> gpt_model.SplitCache:
+        """A new "anc" split cache: the prefix (L, B, H, S0, D) and the gen
+        region in the ancestry layout (L, B, H, nb, G, D), zeros."""
+        cfg, dtype, dev = self.cfg, self.dtype, self.dev
+        return gpt_model.SplitCache(
+            *gpt_model.init_cache(cfg, self.b, self.s0, dtype, dev),
+            *gpt_model.init_gen_cache_anc(cfg, self.b, self.nb,
+                                          self.max_steps, dtype, dev))
+
+    def new_state(self, cache) -> SimpleNamespace:
+        """The tensors a decode updates, over the history's ``cache``;
+        ``reset`` sets their values."""
+        b, nb, bn, g, dev = self.b, self.nb, self.bn, self.max_steps, self.dev
+        long = dict(dtype=torch.long, device=dev)
+        return SimpleNamespace(
+            cache=cache,
+            tokens=torch.empty((bn, g), **long),
+            seen=torch.empty((bn, self.vocab), dtype=torch.bool, device=dev),
+            beam_scores=torch.empty((bn,), dtype=torch.float32, device=dev),
+            prev=torch.empty((bn,), **long),
+            done=torch.empty((b,), dtype=torch.bool, device=dev),
+            pool_norm=torch.empty((b, nb), dtype=torch.float32, device=dev),
+            pool_tok=torch.empty((b, nb, g), **long),
+            pool_len=torch.empty((b, nb), **long),
+            # cof: logical → physical and physical → logical row maps
+            m=self.rows_bn, inv=self.rows_bn,
+            # anc: (B, nb, G) logical beam × gen slot → physical beam in its
+            # row; ancfull: the same over the absolute slots (B, nb, S0 + G)
+            amap=torch.empty((b, nb, self.s_total if self.ancfull else g),
+                             **long),
+            # "anc": the tokens generated so far, on the device
+            j=torch.zeros((), **long),
+            pad_keep=torch.empty((b, self.s0), dtype=torch.bool, device=dev),
+            # the legacy single buffer and "ancfull": slot validity (B·nb or
+            # B, S0 + G)
+            keep_full=None)
+
+    def reset(self, st: SimpleNamespace, pad_keep: torch.Tensor,
+              live: Optional[torch.Tensor]) -> None:
+        """Set a state's values for a new decode, in place."""
+        st.tokens.fill_(self.stop)
+        st.seen.zero_()
+        st.seen[:, self.sc.fake_prefix_id] = True
+        st.seen[:, self.cfg.start_mel_token] = True
+        st.beam_scores.zero_()
+        if not (self.stochastic or self.nb == 1):
+            # beam search: beams 1.. start at -1e9 (module comment above)
+            st.beam_scores.view(self.b, self.nb)[:, 1:] = _BEAM_NEG
+        st.done.zero_()
+        if live is not None:
+            st.done |= ~live
+        st.pool_norm.fill_(float("-inf"))
+        st.pool_tok.fill_(self.stop)
+        st.pool_len.zero_()
+        st.amap.copy_(self.beams[None, :, None].expand(st.amap.shape))
+        st.j.zero_()
+        st.pad_keep.copy_(pad_keep)
+
+    # -- a decode ---------------------------------------------------------
+    def prefill(self, prefix_emb: torch.Tensor, pad_keep: torch.Tensor,
+                live: Optional[torch.Tensor],
+                st: Optional[SimpleNamespace] = None
+                ) -> Tuple[SimpleNamespace, torch.Tensor]:
+        """The prefix through the trunk into the history's cache, and the
+        state set for a new decode: (st, the hidden state (B, C) of the
+        prefix's last position). ``st``: an "anc" state to decode over again
+        (a workspace's); otherwise a new state. Its gen cache keeps the last
+        decode's K/V: a step writes slot j - 1 before it attends to it, and
+        the slots after it take an additive ``_NEG`` bias, so their finite
+        stale values get a weight of exactly 0, as the zeros of a new cache
+        do."""
+        params, cfg, dev, dtype = self.params, self.cfg, self.dev, self.dtype
+        b, nb, max_steps = self.b, self.nb, self.max_steps
+        keep_full = None
+        if self.anc:
+            if st is None:
+                st = self.new_state(self.anc_cache())
+            h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep,
+                                        gpt_model.KVCache(st.cache.kp,
+                                                          st.cache.vp))
+        elif self.reorder in _LEGACY:
+            full = gpt_model.init_cache(cfg, b, self.s_total, dtype, dev)
+            h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep,
+                                        full)
+            # a row's beams are contiguous (row-major (B, nb))
+            cache = gpt_model.KVCache(full.k.repeat_interleave(nb, dim=1),
+                                      full.v.repeat_interleave(nb, dim=1))
+            del full
+            keep_full = torch.cat([pad_keep.repeat_interleave(nb, dim=0),
+                                   torch.ones((self.bn, max_steps),
+                                              dtype=torch.bool, device=dev)],
+                                  dim=1)
+        else:
+            pcache = gpt_model.init_cache(cfg, b, self.s0, dtype, dev)
+            h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep,
+                                        pcache)
+            if self.ancfull:
+                shape = (cfg.layers, b, gpt_model.local_heads(cfg), nb,
+                         self.s_total, cfg.head_dim)
+                kf = torch.zeros(shape, dtype=dtype, device=dev)
+                vf = torch.zeros(shape, dtype=dtype, device=dev)
+                kf[:, :, :, :, :self.s0] = pcache.k[:, :, :, None]
+                vf[:, :, :, :, :self.s0] = pcache.v[:, :, :, None]
+                cache = gpt_model.KVCache(kf, vf)
+                keep_full = torch.cat([pad_keep, torch.ones(
+                    (b, max_steps), dtype=torch.bool, device=dev)], dim=1)
+            else:
+                cache = gpt_model.SplitCache(
+                    pcache.k, pcache.v,
+                    *gpt_model.init_gen_cache(cfg, self.bn, max_steps, dtype,
+                                              dev))
+            del pcache
+        if st is None:
+            st = self.new_state(cache)
+        self.reset(st, pad_keep, live)
+        st.keep_full = keep_full
+        return st, h
+
+    def first_step(self, st: SimpleNamespace, h: torch.Tensor) -> None:
+        """Step 0, on the prefill's hidden state."""
+        logp = self.penalised_logp(h.repeat_interleave(self.nb, dim=0),
+                                   st.seen)
+        if self.reorder == "anc":
+            self.select(st, logp, st.j)
+            st.j += 1
+        else:
+            self.select(st, logp, 0)
+
+    def step(self, st: SimpleNamespace, j: int) -> None:
+        """The step after j generated tokens: the previous token's
+        embedding at mel position j + 1 (parity quirk), the trunk, the
+        selection. "anc" reads j from the state's device counter ``st.j``
+        in place of the host's, and advances it: every value its step reads
+        is then on the device and every tensor it writes is written in
+        place, so a CUDA graph captures the step whole
+        (``BeamWorkspaces``)."""
+        anc = self.reorder == "anc"
+        if anc:
+            j = st.j
+        w = self.params
+        emb = (w["mel_emb"]["w"][st.prev]
+               + _at(w["mel_pos"]["w"], j + 1)).to(self.dtype)
+        self.select(st, self.penalised_logp(self.trunk_step(st, emb, j),
+                                            st.seen), j)
+        if anc:
+            st.j += 1
+
+    def finalize(self, st: SimpleNamespace, steps: int) -> GenerateResult:
+        """Open beams of rows not done join the pool at max_steps; the best
+        hypothesis per row, in new tensors (a workspace's state may serve
+        the next decode before they are read)."""
+        b, nb, max_steps, dev = self.b, self.nb, self.max_steps, self.dev
+        fin_norm = st.beam_scores.reshape(b, nb) / self.norms[max_steps - 1]
+        fin_norm = torch.where(st.done[:, None], float("-inf"), fin_norm)
+        all_norm = torch.cat([st.pool_norm, fin_norm], dim=1)
+        all_len = torch.cat([st.pool_len,
+                             torch.full_like(st.pool_len, max_steps)], dim=1)
+        all_tok = torch.cat([st.pool_tok, st.tokens.reshape(b, nb, -1)],
+                            dim=1)
+        best = torch.argmax(all_norm, dim=1)
+        rows = torch.arange(b, device=dev)
+        out_len = all_len[rows, best]
+        # stop-pad past the hypothesis length (a pooled row may carry tokens
+        # of the beam that went on after its eos)
+        out = torch.where(torch.arange(max_steps, device=dev)[None, :]
+                          < out_len[:, None], all_tok[rows, best], self.stop)
+        return GenerateResult(self.part.gather(out),
+                              self.part.gather(out_len), steps)
+
+    # -- the pieces of a step ---------------------------------------------
+    def penalised_logp(self, hid: torch.Tensor, seen: torch.Tensor
+                       ) -> torch.Tensor:
+        sc = self.sc
+        logits = gpt_model.mel_logits_from_hidden(self.params, hid).float()
         logp = torch.log_softmax(logits, dim=-1)
         if sc.repetition_penalty != 1.0:
             pen = torch.where(logp > 0, logp / sc.repetition_penalty,
@@ -500,78 +708,95 @@ def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
             logp = _typical_filter(logp, sc.typical_mass, min_tokens_to_keep=2)
         return logp
 
-    def select_candidates(logp, beam_scores):
+    def select(self, st: SimpleNamespace, logp: torch.Tensor,
+               j: gpt_model.Slot) -> None:
+        self.process(st, *self.select_candidates(logp, st.beam_scores), j)
+
+    def select_candidates(self, logp: torch.Tensor, beam_scores: torch.Tensor):
         """2·nb candidates per row, sorted by score: (scores, source beam,
         token, best flat score), each (B, 2·nb) but the last (B,)."""
+        part, vocab = self.part, self.vocab
         scores = logp + beam_scores[:, None]
-        if stochastic:
-            scores = _warp_scores(scores, sc)
-        flat = scores.reshape(b, nb * vocab)
+        if self.stochastic:
+            scores = _warp_scores(scores, self.sc)
+        flat = scores.reshape(self.b, self.nb * vocab)
         z = flat
-        if stochastic:
+        if self.stochastic:
             noise = part.drawn(_gumbel((part.n_draw,) + flat.shape[1:],
-                                       generator, dev))
+                                       self.generator, self.dev))
             z = torch.where(torch.isneginf(flat), float("-inf"), flat + noise)
-        idx = _top_k(z, n_cand)[1]
+        idx = _top_k(z, self.n_cand)[1]
         cand = torch.gather(flat, 1, idx)
         order = torch.argsort(-cand, dim=1, stable=True)
         cand = torch.gather(cand, 1, order)
         idx = torch.gather(idx, 1, order)
         return cand, idx // vocab, idx % vocab, flat.max(dim=1).values
 
-    def rows_of(x, src):
+    def rows_of(self, x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
         """Gather the beams of each row: x (B·nb, ...) by src (B, k)."""
-        xv = x.reshape(b, nb, -1)
+        xv = x.reshape(self.b, self.nb, -1)
         return torch.gather(xv, 1, src[..., None].expand(-1, -1, xv.shape[2]))
 
-    def reorder_cof(st, src, j):
+    def reorder_cof(self, st: SimpleNamespace, src: torch.Tensor, j: int
+                    ) -> None:
         """Copy-on-fork: the first beam to claim a physical row keeps it;
         each later claim (a fork) takes a row that no beam claimed and
         copies the ancestor's history [0, j) there. Sources and
         destinations are disjoint, so the copy runs in place."""
+        b, nb, beams, row_off = self.b, self.nb, self.beams, self.row_off
         src_phys = torch.gather(st.m.reshape(b, nb) - row_off, 1, src)
-        first_claim = ~((src[:, :, None] == src[:, None, :]) & earlier).any(2)
+        first_claim = ~((src[:, :, None] == src[:, None, :])
+                        & self.earlier).any(2)
         kept = (src_phys[:, :, None] == beams[None, None, :]).any(1)
         free_first = torch.argsort(kept.int(), dim=1, stable=True)
         fork_rank = (torch.cumsum(~first_claim, dim=1) - 1).clamp_min(0)
         m_new = torch.where(first_claim, src_phys,
                             torch.gather(free_first, 1, fork_rank))
-        cp = torch.full((b, nb), -1, dtype=torch.long, device=dev).scatter(
-            1, m_new, torch.where(first_claim, -1, src_phys))
-        cp = torch.where(cp >= 0, row_off + cp, -1).reshape(bn)
+        cp = torch.full((b, nb), -1, dtype=torch.long, device=self.dev
+                        ).scatter(1, m_new,
+                                  torch.where(first_claim, -1, src_phys))
+        cp = torch.where(cp >= 0, row_off + cp, -1).reshape(self.bn)
         c = st.cache
         permute.copy_on_fork(c.kg, c.vg, cp.int(), j - 1)
-        m_flat = (row_off + m_new).reshape(bn)
-        if reorder == "cofdense":
+        m_flat = (row_off + m_new).reshape(self.bn)
+        if self.reorder == "cofdense":
             # back to identity row maps: a dense gather of the gen region
             st.cache = c._replace(kg=c.kg[:, m_flat], vg=c.vg[:, m_flat])
             return
         st.m = m_flat
         st.inv = (row_off + torch.zeros_like(m_new).scatter(
-            1, m_new, beams.expand(b, nb))).reshape(bn)
+            1, m_new, beams.expand(b, nb))).reshape(self.bn)
 
-    def reorder_cache(st, src, j):
+    def reorder_cache(self, st: SimpleNamespace, src: torch.Tensor,
+                      j: gpt_model.Slot) -> None:
         """Apply the beam switch ``src`` (B, nb: each new beam's source
         beam in its row) to the history, after the step that generated j
         tokens before it."""
+        reorder, s0 = self.reorder, self.s0
         if reorder in ("none", "ancnone", "splitnone"):
             return
-        if anc or ancfull:
+        if self.anc or self.ancfull:
             # slot j-1 was just written by physical == logical beam: stamp it
             # identity, then compose the whole map with the switch. At j = 0
             # the "anc" stamp lands on slot 0, as the JAX update's clamped
             # index does (a later step overwrites it); "ancfull" maps
             # absolute slots, so its stamp at j = 0 is the prefix's last
             # slot, in range, as in JAX.
-            slot = s0 + j - 1 if ancfull else max(j - 1, 0)
-            st.amap[:, :, slot] = beams
-            st.amap = torch.gather(st.amap, 1, src[..., None].expand(
-                -1, -1, st.amap.shape[2]))
+            if self.ancfull:
+                slot = s0 + j - 1
+            elif torch.is_tensor(j):
+                slot = (j - 1).clamp_min(0)
+            else:
+                slot = max(j - 1, 0)
+            gpt_model.write_slot(st.amap, 2, slot, self.beams)
+            st.amap.copy_(torch.gather(st.amap, 1, src[..., None].expand(
+                -1, -1, st.amap.shape[2])))
             return
-        if cof:
-            reorder_cof(st, src, j)
+        if self.cof:
+            self.reorder_cof(st, src, j)
             return
-        src_flat = (row_off + src).reshape(bn)
+        b, nb, cfg = self.b, self.nb, self.cfg
+        src_flat = (self.row_off + src).reshape(self.bn)
         c = st.cache
         if reorder == "split":
             # An index gather of the gen rows, where the JAX package
@@ -589,7 +814,8 @@ def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
             # one-hot product over the beam axis, in the cache's dtype: exact
             # with one nonzero term per output (float32 needs TF32 off,
             # PyTorch's default for matmul)
-            onehot = (src[:, :, None] == beams[None, None, :]).to(dtype)
+            onehot = (src[:, :, None] == self.beams[None, None, :]
+                      ).to(self.dtype)
             for t in c:
                 g = t[:, :, :, s0:].reshape(cfg.layers, b, nb, -1)
                 t[:, :, :, s0:] = torch.einsum("bij,lbjx->lbix", onehot, g
@@ -598,185 +824,271 @@ def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
             # blocks not yet written are skipped on the host; "the switch is
             # the identity" stays on the device and selects the block as it
             # was, so no step waits on the device
-            ident = (src == beams[None, :]).all()
+            ident = (src == self.beams[None, :]).all()
             for lo in range(0, j, _SB):
-                sl = slice(s0 + lo, s0 + min(lo + _SB, max_steps))
+                sl = slice(s0 + lo, s0 + min(lo + _SB, self.max_steps))
                 for t in c:
                     t[:, :, :, sl] = torch.where(ident, t[:, :, :, sl],
                                                  t[:, src_flat, :, sl])
 
-    def process(st, cand, src_beam, tok, best_next, j):
+    def process(self, st: SimpleNamespace, cand: torch.Tensor,
+                src_beam: torch.Tensor, tok: torch.Tensor,
+                best_next: torch.Tensor, j: gpt_model.Slot) -> None:
         """BeamSearchScorer.process and the finished pool, for a step that
         has generated j tokens before it (an eos hypothesis has length
         j + 1, the eos counted)."""
-        norm = norms[j]
+        nb, stop, beams = self.nb, self.stop, self.beams
+        norm = _at(self.norms, j)
         is_eos = tok == stop
-        eos_cand = is_eos & (rank < nb) & ~st.done[:, None]
+        eos_cand = is_eos & (self.rank < nb) & ~st.done[:, None]
         cand_norm = torch.where(eos_cand, cand / norm, float("-inf"))
         all_norm = torch.cat([st.pool_norm, cand_norm], dim=1)
-        all_len = torch.cat([st.pool_len, torch.full_like(cand_norm, j,
-                                                          dtype=torch.long)], 1)
-        all_tok = torch.cat([st.pool_tok, rows_of(st.tokens, src_beam)], 1)
-        st.pool_norm, top_i = _top_k(all_norm, nb)
-        st.pool_len = torch.gather(all_len, 1, top_i)
-        st.pool_tok = torch.gather(
-            all_tok, 1, top_i[..., None].expand(-1, -1, max_steps))
+        all_len = torch.cat([st.pool_len,
+                             torch.zeros_like(cand_norm, dtype=torch.long)
+                             + j], 1)
+        all_tok = torch.cat([st.pool_tok, self.rows_of(st.tokens, src_beam)],
+                            1)
+        pool_norm, top_i = _top_k(all_norm, nb)
+        st.pool_norm.copy_(pool_norm)
+        st.pool_len.copy_(torch.gather(all_len, 1, top_i))
+        st.pool_tok.copy_(torch.gather(
+            all_tok, 1, top_i[..., None].expand(-1, -1, self.max_steps)))
         # live beams: the first nb non-eos candidates in rank order
         slot = torch.cumsum(~is_eos, dim=1) - 1
         pick = torch.argmax(((slot[:, None, :] == beams[None, :, None])
                              & ~is_eos[:, None, :]).int(), dim=2)   # (B, nb)
         done = st.done[:, None]
         # finished rows freeze: stop at score 0, beams kept in place
-        st.beam_scores = torch.where(done, 0.0, torch.gather(cand, 1, pick)
-                                     ).reshape(bn)
-        new_tok = torch.where(done, stop, torch.gather(tok, 1, pick)).reshape(bn)
+        st.beam_scores.copy_(torch.where(done, 0.0, torch.gather(cand, 1, pick)
+                                         ).reshape(self.bn))
+        new_tok = torch.where(done, stop, torch.gather(tok, 1, pick)
+                              ).reshape(self.bn)
         new_src = torch.where(done, beams[None, :],
                               torch.gather(src_beam, 1, pick))
-        st.tokens = rows_of(st.tokens, new_src).reshape(bn, -1)
-        st.seen = rows_of(st.seen, new_src).reshape(bn, -1)
-        reorder_cache(st, new_src, j)
+        st.tokens.copy_(self.rows_of(st.tokens, new_src).reshape(self.bn, -1))
+        st.seen.copy_(self.rows_of(st.seen, new_src).reshape(self.bn, -1))
+        self.reorder_cache(st, new_src, j)
         # column j is still stop in every row, and a finished row's new
         # token is stop, so the write leaves finished rows as they were
-        st.tokens[:, j] = new_tok
-        st.seen[rows_bn, new_tok] = True
-        st.prev = new_tok
+        gpt_model.write_slot(st.tokens, 1, j, new_tok)
+        st.seen.index_put_((self.rows_bn, new_tok), self.true)
+        st.prev.copy_(new_tok)
         # done (early_stopping=False): the pool is full and no open beam can
         # still beat its worst hypothesis
         pool_full = (st.pool_norm > float("-inf")).sum(1) >= nb
         worst = st.pool_norm.min(dim=1).values
-        st.done = st.done | (pool_full & (worst >= best_next / norm))
+        st.done |= pool_full & (worst >= best_next / norm)
 
-    def trunk_step(st, emb, j):
+    def trunk_step(self, st: SimpleNamespace, emb: torch.Tensor,
+                   j: gpt_model.Slot) -> torch.Tensor:
         """Hidden states (B·nb, C) of the step after j - 1 generated
         tokens; writes its K/V at gen slot j - 1."""
-        if ancfull:
+        params, cfg, nb = self.params, self.cfg, self.nb
+        if self.ancfull:
             return gpt_model.trunk_decode_step_anc_full(
-                params, cfg, emb, st.cache.k, st.cache.v, s0 + j - 1,
-                keep_full, nb, st.amap)
-        if anc:
-            return getattr(gpt_model, _ANC_STEPS[reorder])(
-                params, cfg, emb, st.cache, j - 1, pad_keep, nb, st.amap)
-        if cof:
+                params, cfg, emb, st.cache.k, st.cache.v, self.s0 + j - 1,
+                st.keep_full, nb, st.amap)
+        if self.anc:
+            return getattr(gpt_model, _ANC_STEPS[self.reorder])(
+                params, cfg, emb, st.cache, j - 1, st.pad_keep, nb, st.amap)
+        if self.cof:
             # the trunk runs in physical row order: embeddings go in by the
             # physical → logical map, hidden states come out by the inverse
             # (both stay the identity on "cofdense")
             return gpt_model.trunk_decode_step_split(
-                params, cfg, emb[st.inv], st.cache, j - 1, pad_keep, nb)[st.m]
-        if reorder in _SPLIT:
+                params, cfg, emb[st.inv], st.cache, j - 1, st.pad_keep,
+                nb)[st.m]
+        if self.reorder in _SPLIT:
             return gpt_model.trunk_decode_step_split(
-                params, cfg, emb, st.cache, j - 1, pad_keep, nb)
-        slot = s0 + j - 1
-        keep = keep_full & (torch.arange(s_total, device=dev) <= slot)
+                params, cfg, emb, st.cache, j - 1, st.pad_keep, nb)
+        slot = self.s0 + j - 1
+        keep = st.keep_full & (torch.arange(self.s_total, device=self.dev)
+                               <= slot)
         return gpt_model.trunk_decode_step(params, cfg, emb, st.cache, slot,
                                            keep)
 
-    with profiling.span("decode.prefill", device=dev):
-        keep_full = None
-        if reorder in _LEGACY:
-            full = gpt_model.init_cache(cfg, b, s_total, dtype, dev)
-            h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep,
-                                        full)
-            # a row's beams are contiguous (row-major (B, nb))
-            cache = gpt_model.KVCache(full.k.repeat_interleave(nb, dim=1),
-                                      full.v.repeat_interleave(nb, dim=1))
-            del full
-            keep_full = torch.cat([pad_keep.repeat_interleave(nb, dim=0),
-                                   torch.ones((bn, max_steps),
-                                              dtype=torch.bool, device=dev)],
-                                  dim=1)
-        else:
-            pcache = gpt_model.init_cache(cfg, b, s0, dtype, dev)
-            h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep,
-                                        pcache)
-            if ancfull:
-                shape = (cfg.layers, b, gpt_model.local_heads(cfg), nb,
-                         s_total, cfg.head_dim)
-                kf = torch.zeros(shape, dtype=dtype, device=dev)
-                vf = torch.zeros(shape, dtype=dtype, device=dev)
-                kf[:, :, :, :, :s0] = pcache.k[:, :, :, None]
-                vf[:, :, :, :, :s0] = pcache.v[:, :, :, None]
-                cache = gpt_model.KVCache(kf, vf)
-                keep_full = torch.cat([pad_keep, torch.ones(
-                    (b, max_steps), dtype=torch.bool, device=dev)], dim=1)
-            else:
-                kg, vg = (gpt_model.init_gen_cache_anc(cfg, b, nb, max_steps,
-                                                       dtype, dev) if anc else
-                          gpt_model.init_gen_cache(cfg, bn, max_steps, dtype,
-                                                   dev))
-                cache = gpt_model.SplitCache(pcache.k, pcache.v, kg, vg)
-            del pcache
-        seen = torch.zeros((bn, vocab), dtype=torch.bool, device=dev)
-        seen[:, sc.fake_prefix_id] = True
-        seen[:, cfg.start_mel_token] = True
-        if stochastic or nb == 1:
-            beam_scores = torch.zeros((bn,), dtype=torch.float32, device=dev)
-        else:
-            beam_scores = torch.full((b, nb), _BEAM_NEG, dtype=torch.float32,
-                                     device=dev)
-            beam_scores[:, 0] = 0.0
-            beam_scores = beam_scores.reshape(bn)
-        done = torch.zeros((b,), dtype=torch.bool, device=dev)
-        if live is not None:
-            done = done | ~live
-        st = SimpleNamespace(
-            cache=cache,
-            tokens=torch.full((bn, max_steps), stop, dtype=torch.long,
-                              device=dev),
-            seen=seen, beam_scores=beam_scores, prev=None, done=done,
-            pool_norm=torch.full((b, nb), float("-inf"), device=dev),
-            pool_tok=torch.full((b, nb, max_steps), stop, dtype=torch.long,
-                                device=dev),
-            pool_len=torch.zeros((b, nb), dtype=torch.long, device=dev),
-            # cof: logical → physical and physical → logical row maps
-            m=rows_bn, inv=rows_bn,
-            # anc: (B, nb, G) logical beam × gen slot → physical beam in its
-            # row; ancfull: the same over the absolute slots (B, nb, S0 + G)
-            amap=beams[None, :, None].expand(
-                b, nb, s_total if ancfull else max_steps).contiguous())
-        del cache
 
-        logp = penalised_logp(h.repeat_interleave(nb, dim=0), st.seen)
-        process(st, *select_candidates(logp, st.beam_scores), 0)
+# eager "anc" steps a workspace runs on its capture stream before it
+# captures the step
+_GRAPH_WARMUP = 3
+# the share of a card's memory that the workspaces kept between decodes may
+# take (``BeamWorkspaces``)
+_KEEP_SHARE = 0.125
+
+
+def _keep_bytes(dev: torch.device) -> float:
+    """The memory the workspaces on ``dev`` may keep between decodes:
+    ``_KEEP_SHARE`` of a card's; no bound off a card, where the engine
+    passes none."""
+    if dev.type != "cuda":
+        return float("inf")
+    return _KEEP_SHARE * torch.cuda.get_device_properties(dev).total_memory
+
+
+class _Workspace:
+    """The "anc" decode of one shape and setting: its ``_Beam``, its state,
+    and on a card the step as a CUDA graph, captured once warmed up.
+    ``nbytes``: the memory it keeps, its state's tensors and its graph's
+    memory pool."""
+
+    def __init__(self, beam: _Beam, owner: BeamWorkspaces):
+        self.beam, self.owner = beam, owner
+        self.st = beam.new_state(beam.anc_cache())
+        self.nbytes = sum(t.numel() * t.element_size()
+                          for t in (*self.st.cache, *vars(self.st).values())
+                          if torch.is_tensor(t))
+        self.cuda = torch.device(beam.dev).type == "cuda"
+        self.stream = torch.cuda.Stream(beam.dev) if self.cuda else None
+        self.graph = None
+        self.warm = 0
+
+    def step(self, j: int) -> bool:
+        """The step after j generated tokens (``_Beam.step``); True where
+        the graph ran it."""
+        beam, st = self.beam, self.st
+        if not self.cuda:
+            beam.step(st, j)
+            return False
+        if self.graph is None:
+            if self.warm < _GRAPH_WARMUP:
+                # eager on the capture's stream: the step's own work, and
+                # what a capture may not do (cuBLAS's workspace for the
+                # stream, the first launches) done before it
+                self.stream.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(self.stream):
+                    beam.step(st, j)
+                torch.cuda.current_stream().wait_stream(self.stream)
+                self.warm += 1
+                return False
+            self.capture(j)
+        self.graph.replay()
+        return True
+
+    def capture(self, j: int) -> None:
+        """Record the step into a CUDA graph without running it. Unlike
+        ``torch.cuda.graph``, this keeps the allocator's cache rather than
+        emptying it at each capture; the reserve the capture adds is the
+        graph's memory pool."""
+        beam, dev = self.beam, self.beam.dev
+        graph = torch.cuda.CUDAGraph()
+        if beam.generator is not None:
+            # the Gumbel draws then advance the generator's Philox offset at
+            # each replay, as the eager draws do
+            graph.register_generator_state(beam.generator)
+        torch.cuda.synchronize(dev)
+        reserved = torch.cuda.memory_reserved(dev)
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin()
+            try:
+                beam.step(self.st, j)
+            finally:
+                graph.capture_end()
+        self.nbytes += torch.cuda.memory_reserved(dev) - reserved
+        self.graph = graph
+        self.owner.captures += 1
+        self.owner.trim(dev)
+
+
+class BeamWorkspaces:
+    """A caller's "anc" beam decodes kept between calls (an engine keeps
+    one): a workspace for each shape and setting, which holds the decode's
+    state and, on a card, its step as a CUDA graph. The key is everything
+    the graph holds fixed: the rows, beams, prefix width, cap and dtype,
+    the weights, the generator and the sampling settings. The first decode
+    of a key runs ``_GRAPH_WARMUP`` eager steps, then captures one step;
+    every later step replays it, the host issuing one launch a step.
+    Past ``_keep_bytes`` the least recently used workspaces go; the one in
+    use stays, alone if it is larger. ``captures``: the graphs captured so
+    far."""
+
+    def __init__(self):
+        self._ws: collections.OrderedDict = collections.OrderedDict()
+        self.captures = 0
+
+    def get(self, params, cfg: GPTConfig, sc: SamplingConfig,
+            generator: Optional[torch.Generator], num_beams: int,
+            length_penalty: float, stochastic: bool, part: _Rows, b: int,
+            s0: int, dev, dtype) -> _Workspace:
+        """The workspace of this decode, made on a miss."""
+        dev = torch.device(dev)
+        key = (id(params), id(cfg), id(generator), sc, num_beams,
+               float(length_penalty), stochastic, b, s0, dev, dtype)
+        ws = self._ws.pop(key, None)
+        if ws is None:
+            # room for the new one's K/V caches first, so that the memory
+            # kept never holds both it and those it displaces
+            self.trim(dev, 2 * cfg.layers * b * cfg.model_dim
+                      * (num_beams * sc.max_mel_tokens + s0)
+                      * dtype.itemsize)
+            ws = _Workspace(_Beam(params, cfg, sc, generator, num_beams,
+                                  length_penalty, stochastic, "anc", part, b,
+                                  s0, dev, dtype), self)
+        self._ws[key] = ws
+        self.trim(dev)
+        return ws
+
+    def trim(self, dev: torch.device, coming: int = 0) -> None:
+        """Drop the least recently used workspaces while those kept, and
+        ``coming`` bytes more, take more than ``_keep_bytes(dev)``; the
+        newest stays where nothing is coming."""
+        while (len(self._ws) > (0 if coming else 1)
+               and self.nbytes + coming > _keep_bytes(dev)):
+            self._ws.popitem(last=False)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(ws.nbytes for ws in self._ws.values())
+
+    def __len__(self) -> int:
+        return len(self._ws)
+
+
+def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
+          length_penalty, stochastic, reorder, live, part: _Rows,
+          workspaces: Optional[BeamWorkspaces]) -> GenerateResult:
+    prefix_emb, pad_keep, live = (part.local(t) for t in
+                                  (prefix_emb, pad_keep, live))
+    b, s0, _ = prefix_emb.shape
+    dev, dtype = prefix_emb.device, prefix_emb.dtype
+    args = (params, cfg, sc, generator, num_beams, length_penalty,
+            stochastic)
+    ws = None
+    if workspaces is not None:
+        ws = workspaces.get(*args, part, b, s0, dev, dtype)
+        m = ws.beam
+    else:
+        m = _Beam(*args, reorder, part, b, s0, dev, dtype)
+    with profiling.span("decode.prefill", device=dev):
+        st, h = m.prefill(prefix_emb, pad_keep, live,
+                          None if ws is None else ws.st)
+        m.first_step(st, h)
     j = 1
-    while j < max_steps:
+    while j < m.max_steps:
         if j % _DONE_CHECK_EVERY == 0:
             with profiling.sync("done"):
                 finished = part.all_done(st.done)
             if finished:
                 break
-        with profiling.span("decode.step"):
-            emb = (params["mel_emb"]["w"][st.prev]
-                   + params["mel_pos"]["w"][j + 1]).to(dtype)
-            logp = penalised_logp(trunk_step(st, emb, j), st.seen)
-            process(st, *select_candidates(logp, st.beam_scores), j)
+        with profiling.span("decode.step") as sp:
+            if ws is not None:
+                sp.set(graph=int(ws.step(j)))
+            else:
+                m.step(st, j)
+                sp.set(graph=0)
         j += 1
-
-    # finalize: open beams of rows not done join the pool at max_steps
-    fin_norm = st.beam_scores.reshape(b, nb) / norms[max_steps - 1]
-    fin_norm = torch.where(st.done[:, None], float("-inf"), fin_norm)
-    all_norm = torch.cat([st.pool_norm, fin_norm], dim=1)
-    all_len = torch.cat([st.pool_len, torch.full_like(st.pool_len, max_steps)],
-                        dim=1)
-    all_tok = torch.cat([st.pool_tok, st.tokens.reshape(b, nb, -1)], dim=1)
-    best = torch.argmax(all_norm, dim=1)
-    rows = torch.arange(b, device=dev)
-    out_len = all_len[rows, best]
-    # stop-pad past the hypothesis length (a pooled row may carry tokens of
-    # the beam that went on after its eos)
-    out = torch.where(torch.arange(max_steps, device=dev)[None, :]
-                      < out_len[:, None], all_tok[rows, best], stop)
-    return GenerateResult(part.gather(out), part.gather(out_len), j)
+    return m.finalize(st, j)
 
 
 def generate_beam(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
                   prefix_emb: torch.Tensor, pad_keep: torch.Tensor,
                   num_beams: int = 3, length_penalty: float = 0.0,
                   live: Optional[torch.Tensor] = None,
-                  mesh=None) -> GenerateResult:
+                  mesh=None, workspaces: Optional[BeamWorkspaces] = None
+                  ) -> GenerateResult:
     """Deterministic beam search (HF beam_search, do_sample=False)."""
     return _beam_decode(params, cfg, sc, prefix_emb, pad_keep, None,
                         num_beams, length_penalty, stochastic=False,
-                        live=live, mesh=mesh)
+                        live=live, mesh=mesh, workspaces=workspaces)
 
 
 def generate_beam_sample(params: Dict[str, Any], cfg: GPTConfig,
@@ -785,9 +1097,11 @@ def generate_beam_sample(params: Dict[str, Any], cfg: GPTConfig,
                          generator: Optional[torch.Generator],
                          num_beams: int = 3, length_penalty: float = 0.0,
                          live: Optional[torch.Tensor] = None,
-                         mesh=None) -> GenerateResult:
+                         mesh=None,
+                         workspaces: Optional[BeamWorkspaces] = None
+                         ) -> GenerateResult:
     """Beam sampling (HF beam_sample), the reference's default decode:
     candidates drawn without replacement by Gumbel top-k."""
     return _beam_decode(params, cfg, sc, prefix_emb, pad_keep, generator,
                         num_beams, length_penalty, stochastic=True,
-                        live=live, mesh=mesh)
+                        live=live, mesh=mesh, workspaces=workspaces)

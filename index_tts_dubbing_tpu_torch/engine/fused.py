@@ -59,11 +59,14 @@ def synthesize_fused_lat(gpt_params: Dict[str, Any], gpt_cfg: GPTConfig,
                          generator: Optional[torch.Generator] = None,
                          live: Optional[torch.Tensor] = None,
                          *, num_beams: int = 1,
-                         length_penalty: float = 0.0) -> FusedLatResult:
+                         length_penalty: float = 0.0,
+                         workspaces: Optional[decode_mod.BeamWorkspaces] = None
+                         ) -> FusedLatResult:
     """Prefix arrays from ``prepare_prefix_host`` plus unframed text rows
     (B, L) and their lengths → codes, trimmed lengths and latents.
     ``num_beams > 1`` decodes by beam sampling (``sc.do_sample``) or beam
-    search; otherwise by sampling or greedy."""
+    search (over ``workspaces``, as ``decode._beam_decode`` takes them);
+    otherwise by sampling or greedy."""
     from index_tts_dubbing_tpu_torch.engine.tts import (
         remove_long_silence_device)
     b = ids.shape[0]
@@ -73,7 +76,8 @@ def synthesize_fused_lat(gpt_params: Dict[str, Any], gpt_cfg: GPTConfig,
     if num_beams > 1:
         res = decode_mod._beam_decode(gpt_params, gpt_cfg, sc, emb, keep,
                                       generator, num_beams, length_penalty,
-                                      stochastic=sc.do_sample, live=live)
+                                      stochastic=sc.do_sample, live=live,
+                                      workspaces=workspaces)
     else:
         res = decode_mod.generate(gpt_params, gpt_cfg, sc, emb, keep,
                                   generator, live=live)

@@ -238,12 +238,16 @@ class CharTokenizer:
 
 def _request(entry: str):
     """The public call ``entry`` as the root span ``request``
-    (utils/profiling.py)."""
+    (utils/profiling.py), with the CUDA graphs it captured
+    (``graph_captures``)."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(self, *args, **kwargs):
-            with profiling.span("request", entry=entry):
-                return fn(self, *args, **kwargs)
+            with profiling.span("request", entry=entry) as sp:
+                n0 = self._beam_workspaces.captures
+                out = fn(self, *args, **kwargs)
+                sp.set(graph_captures=self._beam_workspaces.captures - n0)
+                return out
         return call
     return wrap
 
@@ -365,6 +369,7 @@ class IndexTTS:
         # the decode of the last request (set by _sampling_config)
         self._num_beams, self._length_penalty = 1, 0.0
         self._generator = torch.Generator(self.device).manual_seed(seed)
+        self._beam_workspaces = decode_mod.BeamWorkspaces()
 
     # ------------------------------------------------------------------
     def _load_params(self, seed: int) -> Dict[str, Any]:
@@ -463,6 +468,17 @@ class IndexTTS:
             return f"{kind} (num_beams={self._num_beams}, reorder=anc)"
         return "sampling" if sc.do_sample else "greedy"
 
+    def _workspaces(self) -> Optional[decode_mod.BeamWorkspaces]:
+        """The beam workspaces, where the beam decode replays each step
+        after the first from a CUDA graph (engine/decode.py
+        ``BeamWorkspaces``): on a card, without a mesh (whose collectives
+        stay eager), at num_beams > 1. Elsewhere None: the decode runs
+        eagerly."""
+        if (self.device.type == "cuda" and self.mesh is None
+                and self._num_beams > 1):
+            return self._beam_workspaces
+        return None
+
     def _decode_batch(self, conds: torch.Tensor, token_rows: List[np.ndarray],
                       sc: SamplingConfig) -> Tuple[np.ndarray, np.ndarray]:
         """AR decode of a batch of token rows at a bucketed text width:
@@ -502,7 +518,8 @@ class IndexTTS:
         args = (self.params["gpt"], self.gpt_cfg, sc, emb, keep)
         kw = dict(live=live, mesh=self.mesh)
         beam = dict(num_beams=self._num_beams,
-                    length_penalty=self._length_penalty, **kw)
+                    length_penalty=self._length_penalty,
+                    workspaces=self._workspaces(), **kw)
         if self._num_beams > 1 and sc.do_sample:
             res = decode_mod.generate_beam_sample(*args, self._generator,
                                                   **beam)
@@ -675,7 +692,8 @@ class IndexTTS:
             self.params["gpt"], self.gpt_cfg, sc, conds, x["ids"], x["pos"],
             x["seg"], x["cond_idx"], x["text"], x["text_lens"],
             self._generator, live, num_beams=self._num_beams,
-            length_penalty=self._length_penalty)
+            length_penalty=self._length_penalty,
+            workspaces=self._workspaces())
 
     def synthesize_fused(self, conds: torch.Tensor,
                          token_rows: List[np.ndarray], sc: SamplingConfig,

@@ -26,7 +26,7 @@ were trained with).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -36,6 +36,9 @@ from index_tts_dubbing_tpu_torch.models import conformer, legacy_cond, perceiver
 from index_tts_dubbing_tpu_torch.parallel import mesh as tp
 
 Params = Dict[str, Any]
+# a cache slot: a host int, or a 0-d int64 device tensor (a step counter
+# that lives on the device, as under a CUDA graph)
+Slot = Union[int, torch.Tensor]
 _NEG = -1e30
 
 
@@ -192,7 +195,19 @@ def init_gen_cache_anc(cfg: GPTConfig, b: int, nb: int, gen_len: int, dtype,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _split_biases(keep_p: torch.Tensor, g_len: int, slot: int
+def write_slot(t: torch.Tensor, dim: int, slot: Slot,
+               value: torch.Tensor) -> None:
+    """``t`` at index ``slot`` of axis ``dim`` set to ``value`` (broadcast to
+    ``t`` without that axis), in place. A 0-d device tensor ``slot`` is read
+    on the device (``index_copy_``), so a CUDA graph can capture the write."""
+    if not torch.is_tensor(slot):
+        t.select(dim, slot).copy_(value)
+        return
+    shape = t.select(dim, 0).shape
+    t.index_copy_(dim, slot.reshape(1), value.expand(shape).unsqueeze(dim))
+
+
+def _split_biases(keep_p: torch.Tensor, g_len: int, slot: Slot
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Additive float32 biases: prefix (B, 1, 1, S0) from the pad mask, gen
     (G,) opening slots <= ``slot``."""
@@ -241,7 +256,7 @@ def trunk_decode_step_split(params: Params, cfg: GPTConfig, x: torch.Tensor,
     return nn.layer_norm(params["ln_f"], x)
 
 
-def _amap_eff(amap: torch.Tensor, slot: int, nb: int) -> torch.Tensor:
+def _amap_eff(amap: torch.Tensor, slot: Slot, nb: int) -> torch.Tensor:
     """The ancestry map with column ``slot`` stamped identity: the current
     step writes physical beam == logical beam there (the decode loop
     composes the map after selection)."""
@@ -264,7 +279,7 @@ def _heads_major(t: torch.Tensor, b: int, nb: int, h: int, d: int
 
 
 def _split_anc_step(params: Params, cfg: GPTConfig, x: torch.Tensor,
-                    cache: SplitCache, slot: int, keep_p: torch.Tensor,
+                    cache: SplitCache, slot: Slot, keep_p: torch.Tensor,
                     nb: int, amap: torch.Tensor, width: int) -> torch.Tensor:
     """The ancestry-routed step with its gen attention bounded to gen slots
     [0, width) (width > slot); see ``trunk_decode_step_split_anc``."""
@@ -279,8 +294,8 @@ def _split_anc_step(params: Params, cfg: GPTConfig, x: torch.Tensor,
     onehot = _anc_onehot(amap_eff, nb).to(x.dtype)[:, None]     # (B,1,n,m,W)
     for li, blk in enumerate(params["blocks"]):
         q, k, v = _qkv_proj(blk, x)
-        cache.kg[li, :, :, :, slot] = _heads_major(k, b, nb, h, d)
-        cache.vg[li, :, :, :, slot] = _heads_major(v, b, nb, h, d)
+        write_slot(cache.kg[li], 3, slot, _heads_major(k, b, nb, h, d))
+        write_slot(cache.vg[li], 3, slot, _heads_major(v, b, nb, h, d))
         qf = _heads_major(q, b, nb, h, d).float()                # (B, H, nb, D)
         lp = torch.matmul(qf, cache.kp[li].float().transpose(-1, -2)) * scale
         kg, vg = cache.kg[li], cache.vg[li]
@@ -304,7 +319,7 @@ def _split_anc_step(params: Params, cfg: GPTConfig, x: torch.Tensor,
 
 
 def trunk_decode_step_split_anc(params: Params, cfg: GPTConfig,
-                                x: torch.Tensor, cache: SplitCache, slot: int,
+                                x: torch.Tensor, cache: SplitCache, slot: Slot,
                                 keep_p: torch.Tensor, nb: int,
                                 amap: torch.Tensor) -> torch.Tensor:
     """One beam decode step over a SplitCache in the ancestry layout, with
@@ -315,7 +330,8 @@ def trunk_decode_step_split_anc(params: Params, cfg: GPTConfig,
     the probabilities. The current step writes physical beam == logical
     beam, so the map at ``slot`` is taken as identity here (the decode
     loop updates the map after selection). Writes the new K/V slot into
-    ``cache.kg/vg`` in place, as ``trunk_decode_step_split`` does. Returns
+    ``cache.kg/vg`` in place, as ``trunk_decode_step_split`` does. ``slot``
+    may be a 0-d device tensor: the step then reads no host value. Returns
     hidden (BN, C) after ln_f."""
     return _split_anc_step(params, cfg, x, cache, slot, keep_p, nb, amap,
                            cache.kg.shape[4])

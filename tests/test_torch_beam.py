@@ -219,3 +219,97 @@ def test_cof_calls_copy_on_fork_once_per_step(setup, monkeypatch):
     assert real.launches == 0
     with pytest.raises(ValueError, match="unknown beam reorder"):
         _port_beam(setup, False, 0.0, "bogus")
+
+
+def _ws_beam(s, emb, keep, live, stochastic, generator, workspaces,
+             steps=STEPS):
+    sc = pdecode.SamplingConfig(do_sample=stochastic, max_mel_tokens=steps)
+    return pdecode._beam_decode(s["p"], s["cfg"], sc, emb, keep, generator,
+                                NB, 0.0, stochastic=stochastic, live=live,
+                                workspaces=workspaces)
+
+
+def _assert_equal_results(a, b):
+    np.testing.assert_array_equal(a.codes.numpy(), b.codes.numpy())
+    np.testing.assert_array_equal(a.lengths.numpy(), b.lengths.numpy())
+    assert a.steps == b.steps
+
+
+@pytest.mark.parametrize("stochastic", [False, True],
+                         ids=["beam_search", "beam_sampling"])
+def test_workspace_decodes_equal_fresh_decodes(setup, stochastic):
+    """Two decodes of one shape over one workspace (on the CPU its steps
+    run eagerly) give the tokens of two fresh decodes: the second starts
+    from a state reset in place, the other row dead and the rows in
+    another order. No graph is captured on the CPU."""
+    live = torch.from_numpy(LIVE)
+    inputs = [(setup["emb"], setup["keep"], live),
+              (setup["emb"].flip(0), setup["keep"].flip(0), live.flip(0))]
+    gen = torch.Generator().manual_seed(11)
+    fresh = [_ws_beam(setup, *x, stochastic, gen, None) for x in inputs]
+    ws = pdecode.BeamWorkspaces()
+    gen.manual_seed(11)
+    reused = [_ws_beam(setup, *x, stochastic, gen, ws) for x in inputs]
+    for a, b in zip(reused, fresh):
+        _assert_equal_results(a, b)
+    assert not torch.equal(fresh[0].codes, fresh[1].codes)
+    assert len(ws) == 1 and ws.captures == 0
+
+
+@pytest.mark.parametrize("room", ["both", "one"])
+def test_workspaces_keep_shapes_apart(setup, monkeypatch, room):
+    """Decodes of two caps (two keys) in turn over one ``BeamWorkspaces``
+    each give the fresh decode's tokens; past ``_keep_bytes`` (no bound on
+    the CPU, or a byte) the least recently used workspace goes, and its
+    key is made anew when it comes back. A workspace counts at least its
+    gen cache's bytes."""
+    if room == "one":
+        monkeypatch.setattr(pdecode, "_keep_bytes", lambda dev: 1)
+    live = torch.from_numpy(LIVE)
+    ws = pdecode.BeamWorkspaces()
+    cfg = setup["cfg"]
+    gen_bytes = lambda steps: (2 * cfg.layers * len(LIVE) * NB * steps
+                               * cfg.model_dim * 4)        # K and V, f32
+    for steps in (STEPS, STEPS - 13, STEPS):
+        fresh = _ws_beam(setup, setup["emb"], setup["keep"], live, False,
+                         None, None, steps)
+        got = _ws_beam(setup, setup["emb"], setup["keep"], live, False,
+                       None, ws, steps)
+        _assert_equal_results(got, fresh)
+    if room == "both":
+        assert len(ws) == 2
+        assert ws.nbytes >= gen_bytes(STEPS) + gen_bytes(STEPS - 13)
+    else:
+        assert len(ws) == 1 and ws.nbytes >= gen_bytes(STEPS)
+
+
+def test_workspaces_serve_anc_alone(setup):
+    """Another history, or a workspace-less call, leaves the workspaces
+    untouched; "anc" uses them."""
+    ws = pdecode.BeamWorkspaces()
+    live = torch.from_numpy(LIVE)
+    sc = pdecode.SamplingConfig(do_sample=False, max_mel_tokens=STEPS)
+    for reorder in ("cof", "ancsw", "split"):
+        pdecode._beam_decode(setup["p"], setup["cfg"], sc, setup["emb"],
+                             setup["keep"], None, NB, 0.0, stochastic=False,
+                             reorder=reorder, live=live, workspaces=ws)
+    assert len(ws) == 0
+    _ws_beam(setup, setup["emb"], setup["keep"], live, False, None, ws)
+    assert len(ws) == 1
+
+
+def test_engine_passes_workspaces_on_a_card_alone():
+    """The engine's beam decode takes its workspaces (and so, on a card,
+    the CUDA graph) only on CUDA, without a mesh, at num_beams > 1: the
+    predicate, checked on the CPU."""
+    from types import SimpleNamespace
+
+    from index_tts_dubbing_tpu_torch.engine.tts import IndexTTS
+    ws = pdecode.BeamWorkspaces()
+    engine = lambda device, mesh, nb: SimpleNamespace(
+        device=torch.device(device), mesh=mesh, _num_beams=nb,
+        _beam_workspaces=ws)
+    for args in (("cuda", None, 3), ("cuda:0", None, 2)):
+        assert IndexTTS._workspaces(engine(*args)) is ws
+    for args in (("cpu", None, 3), ("cuda", object(), 3), ("cuda", None, 1)):
+        assert IndexTTS._workspaces(engine(*args)) is None
