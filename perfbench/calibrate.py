@@ -6,11 +6,11 @@ numbers on many seeds, in one process.
 
 For each seed: the cell's program on that seed's weights serves the calls
 a run compares (the mix's longest slot and ``check_extra`` more, at the
-cell's own sizes), then the plain reference reads the program's numbers
-and the control's: the reference in the precision below the
-configuration's (``control`` in its file) put in the program's place over
-the same prompts, texts and served codes. One JSON line per seed. The
-benchmark's own runs never run this.
+cell's own sizes), then the plain reference of the configuration's model
+family reads the program's numbers and the control's: the reference in
+the precision below the configuration's (``control`` in its file) put in
+the program's place over the same prompts, texts and served outputs. One
+JSON line per seed. The benchmark's own runs never run this.
 """
 import argparse
 import json
@@ -26,40 +26,16 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from perfbench import check, harness, traffic, weights  # noqa: E402
-from perfbench.reference import Reference  # noqa: E402
-
-
-def fp8_weights(tree):
-    """Every matrix (ndim >= 2) rounded to float8 e4m3 with a per-tensor
-    scale (amax to 448), back in bfloat16; vectors in bfloat16."""
-    if isinstance(tree, dict):
-        return {k: fp8_weights(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [fp8_weights(v) for v in tree]
-    if not tree.is_floating_point():
-        return tree
-    x = tree.float()
-    if x.dim() < 2:
-        return x.to(torch.bfloat16)
-    scale = x.abs().max().clamp_min(1e-30) / 448.0
-    q = (x / scale).to(torch.float8_e4m3fn).float() * scale
-    return q.to(torch.bfloat16)
+from perfbench import families, harness, traffic  # noqa: E402
 
 
 def control(params32, cfg):
-    """The control: the reference one precision below the
-    configuration's."""
-    kind = cfg["control"]
-    if kind == "fp8_weights_bf16":
-        return Reference(fp8_weights(params32), cfg, torch.bfloat16)
-    if kind == "bfloat16":
-        return Reference(weights.cast(params32, torch.bfloat16), cfg,
-                         torch.bfloat16)
-    raise ValueError(f"unknown control {kind!r}")
+    """The control of the configuration's model family: its reference one
+    precision below the configuration's."""
+    return families.of(cfg, ROOT).control(params32, cfg)
 
 
-def compared_calls(mix, seed):
+def compared_calls(mix, seed, family=None):
     """The calls a run compares: the longest slot and ``check_extra`` more
     slots, drawn from the seed."""
     rng = np.random.default_rng([int(seed), 4])
@@ -68,7 +44,8 @@ def compared_calls(mix, seed):
     others = [i for i in range(len(slots)) if i != longest]
     picked = [longest] + [int(i) for i in rng.permutation(others)
                           [: int(mix.get("check_extra", 2))]]
-    return [traffic.slot_call(mix, rng, n, i) for n, i in enumerate(picked)]
+    return [traffic.slot_call(mix, rng, n, i, family)
+            for n, i in enumerate(picked)]
 
 
 def main() -> int:
@@ -83,33 +60,26 @@ def main() -> int:
     cell = harness.load_cell(Path(args.root), args.workload)
     if dev == "cuda":
         harness.require_chips(cell.chips)
-    cfg = cell.config
+    cfg, mix, fam = cell.config, cell.mix, cell.family
     out = open(args.out, "a") if args.out else None
     for seed in [int(s) for s in args.seeds.split(",")]:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as wd:
             prog = harness.Program(cell, seed, dev, Path(wd))
-            records = [prog.serve(c) for c in compared_calls(cell.mix, seed)]
+            records = [prog.serve(c)
+                       for c in compared_calls(mix, seed, fam)]
             harness.host_codes(records)
             prompt = prog.prompt
             prog.free()
             del prog
             t1 = time.perf_counter()
             idx = list(range(len(records)))
-            p32 = weights.cast(weights.make(cfg, seed, dev,
-                                            harness.DTYPES[cfg["dtype"]]),
-                               torch.float32)
-            ref = Reference(p32, cfg, torch.float32)
-            ref.set_prompt(prompt)
-            dec = cell.mix["decode"]
-            prog_read = check.readings(ref, records, idx, cfg, dec, seed)
+            prog_read = fam.compare(records, idx, cfg, mix, seed, prompt,
+                                    dev)
             t2 = time.perf_counter()
-            low = control(p32, cfg)
-            low.set_prompt(prompt)
-            ctrl_read = check.readings(ref, records, idx, cfg, dec, seed,
-                                       low=low)
+            ctrl_read = fam.compare(records, idx, cfg, mix, seed, prompt,
+                                    dev, as_control=True)
             t3 = time.perf_counter()
-            del ref, low, p32
             if dev == "cuda":
                 torch.cuda.empty_cache()
         line = {"workload": args.workload, "seed": seed,

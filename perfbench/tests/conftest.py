@@ -3,9 +3,10 @@
 ``tiny_root`` builds a checkout-like directory of its own that holds only
 new files and entries: a configuration (``tiny.f32``, IndexTTS's structure
 at the port's small test widths, float32), two traffic mixes and the
-benchmark's own metric readers, with a ``BENCHMARK.json`` naming them. The
-harness runs from it on the CPU. The ``card`` marker is for tests that
-need a CUDA device; each decides inside itself whether there is one.
+benchmark's own metric readers and model families, with a
+``BENCHMARK.json`` naming them. The harness runs from it on the CPU. The
+``card`` marker is for tests that need a CUDA device; each decides inside
+itself whether there is one.
 """
 import json
 import shutil
@@ -52,6 +53,9 @@ def make_tiny_root(root: Path) -> Path:
     (root / "perfbench" / "traffic").mkdir(parents=True)
     shutil.copytree(ROOT / "perfbench" / "metrics",
                     root / "perfbench" / "metrics")
+    shutil.copytree(ROOT / "perfbench" / "families",
+                    root / "perfbench" / "families",
+                    ignore=shutil.ignore_patterns("__pycache__"))
     for mix in ("tinyline", "tinyscene"):
         shutil.copy(DATA / f"{mix}.json",
                     root / "perfbench" / "traffic" / f"{mix}.json")

@@ -1,5 +1,5 @@
 """``graph_step_share`` (``perfbench/graph_spans.py`` and
-``perfbench/metrics/graph_step_share.scene.py``) on hand-built recorded
+``perfbench/metrics/graph_step_share.{line,scene}.py``) on hand-built recorded
 requests: every step replayed, none, a mix; None where no step was
 recorded, no step carries the ``graph`` attribute (a port that does not
 mark its steps) or the run's trace shows no device busy (a run on the
@@ -78,3 +78,10 @@ def test_metric_files_read_through_the_helper(recorded):
     recorded.append(_request(100, [0, 1]))
     read = harness.reader(ROOT, "graph_step_share.scene")
     assert read(_data()) == pytest.approx(50.0)
+
+
+def test_line_file_reads_as_the_scene_file(recorded):
+    recorded.append(_request(100, [0, 1, 1, 1]))
+    assert harness.reader(ROOT, "graph_step_share.line")(_data()) == \
+        harness.reader(ROOT, "graph_step_share.scene")(_data()) == \
+        pytest.approx(75.0)

@@ -1,6 +1,7 @@
 """The harness end to end on the CPU at the tests' small size: the result
 line's schema, a configuration, a mix and a metric added by new files and
-entries alone, and the look for a chip."""
+entries alone (a model family too: ``test_perfbench_families.py``), and
+the look for a chip."""
 import json
 import subprocess
 import sys
@@ -33,7 +34,8 @@ def test_result_line_schema(tiny_root, workload, trace):
     got = {k: v["unit"] for k, v in r["metrics"].items()}
     # on the CPU the device readers find nothing to read and say nothing
     assert got == {k: u for k, u in want.items()
-                   if not k.startswith(("idle_share", "k2_roofline"))}
+                   if not k.startswith(("idle_share", "k2_roofline",
+                                        "graph_step_share"))}
     for v in r["metrics"].values():
         assert isinstance(v["value"], float) and v["value"] > 0
     assert r["device"]["platform"] == "cpu" and r["device"]["count"] == 1
@@ -49,8 +51,10 @@ def test_result_line_schema(tiny_root, workload, trace):
 
 
 def test_new_entries_need_no_edit(tiny_root):
-    """A throwaway configuration, mix and metric: new files and new entries
-    only, and the harness finds and reports them."""
+    """A throwaway configuration, mix and metric of the IndexTTS family:
+    new files and new entries only, and the harness finds and reports them.
+    A model of another family is added the same way, with its family's
+    file (``test_perfbench_families.py``)."""
     cfg = json.loads((tiny_root / "tiny.f32.json").read_text())
     cfg["gpt"]["layers"] = 1
     (tiny_root / "tiny1.json").write_text(json.dumps(cfg))

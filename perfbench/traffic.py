@@ -1,10 +1,13 @@
 """The one traffic generator: a closed loop of calls drawn from a mix file.
 
 A mix file (``perfbench/traffic/<name>.json``) lists ``slots``; each slot
-is one call of the mix's ``entry`` (``infer_fast`` or ``infer_batch``):
-its decode cap ``cap`` in mel codes and the token count of each of its
-texts (``chars``); every call decodes with the mix's ``decode`` settings,
-beam sampling, which the check reads. The loop runs the slots in cycles. A
+is one call of the mix's ``entry``: its cap ``cap`` (for IndexTTS the
+decode cap in mel codes) and the token count of each of its texts
+(``chars``). The model family the cell's configuration names checks the
+mix's own keys and gives each call its keyword arguments
+(``perfbench/families/``); without one, IndexTTS's: every call decodes
+with the mix's ``decode`` settings, beam sampling, which the check reads.
+The loop runs the slots in cycles. A
 mix may group its slots (``cycle``, a list of lists of slot indices): each
 cycle runs the groups in an order the seed shuffles, each group's slots in
 an order the seed shuffles. Without ``cycle`` the seed shuffles all the
@@ -22,9 +25,12 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, Iterator, List
+from types import ModuleType
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
+
+from perfbench import families
 
 LETTERS = "abcdefghijklmnopqrstuvwxyz"
 
@@ -38,17 +44,18 @@ class Call:
     kwargs: Dict[str, Any] = field(default_factory=dict)
 
 
-def load(path: Path) -> Dict[str, Any]:
+def _family(family: Optional[ModuleType]) -> ModuleType:
+    return family if family is not None else families.load()
+
+
+def load(path: Path, family: Optional[ModuleType] = None
+         ) -> Dict[str, Any]:
+    """The mix file at ``path``, checked by ``family`` (default IndexTTS)."""
     mix = json.loads(Path(path).read_text())
-    for key in ("entry", "slots", "decode", "prompt_seconds"):
+    for key in ("entry", "slots", "prompt_seconds"):
         if key not in mix:
             raise ValueError(f"{path}: traffic mix lacks {key!r}")
-    if mix["entry"] not in ("infer_fast", "infer_batch"):
-        raise ValueError(f"{path}: unknown entry {mix['entry']!r}")
-    d = mix["decode"]
-    if not (d.get("do_sample") and d.get("num_beams", 1) > 1):
-        raise ValueError(f"{path}: the check reads beam sampling only "
-                         f"(do_sample and num_beams > 1)")
+    _family(family).check_mix(mix, path)
     return mix
 
 
@@ -63,16 +70,12 @@ def make_text(rng: np.random.Generator, n_tokens: int) -> str:
     return " ".join(words) + "."
 
 
-def decode_kwargs(mix: Dict[str, Any], cap: int) -> Dict[str, Any]:
-    return dict(mix["decode"], max_mel_tokens=cap)
-
-
 def slot_call(mix: Dict[str, Any], rng: np.random.Generator, index: int,
-              slot: int) -> Call:
+              slot: int, family: Optional[ModuleType] = None) -> Call:
     s = mix["slots"][slot]
     texts = [make_text(rng, n) for n in rng.permutation(s["chars"])]
     return Call(index, slot, int(s["cap"]), texts,
-                decode_kwargs(mix, int(s["cap"])))
+                _family(family).call_kwargs(mix, slot))
 
 
 def cycle_order(mix: Dict[str, Any], rng: np.random.Generator) -> List[int]:
@@ -84,20 +87,25 @@ def cycle_order(mix: Dict[str, Any], rng: np.random.Generator) -> List[int]:
     return [int(g[int(i)]) for g in order for i in rng.permutation(len(g))]
 
 
-def calls(mix: Dict[str, Any], seed: int) -> Iterator[Call]:
+def calls(mix: Dict[str, Any], seed: int,
+          family: Optional[ModuleType] = None) -> Iterator[Call]:
     """The closed loop's calls, endless, from ``seed``."""
+    family = _family(family)
     rng = np.random.default_rng(int(seed))
     index = 0
     while True:
         for slot in cycle_order(mix, rng):
-            yield slot_call(mix, rng, index, slot)
+            yield slot_call(mix, rng, index, slot, family)
             index += 1
 
 
-def warmup_calls(mix: Dict[str, Any], seed: int) -> List[Call]:
+def warmup_calls(mix: Dict[str, Any], seed: int,
+                 family: Optional[ModuleType] = None) -> List[Call]:
     """One call of every slot: every shape the loop will use."""
+    family = _family(family)
     rng = np.random.default_rng([int(seed), 1])
-    return [slot_call(mix, rng, -1 - i, i) for i in range(len(mix["slots"]))]
+    return [slot_call(mix, rng, -1 - i, i, family)
+            for i in range(len(mix["slots"]))]
 
 
 def prompt_wav(mix: Dict[str, Any], seed: int, sample_rate: int
