@@ -64,6 +64,11 @@ class BigVGANConfig:
     snake_logscale: bool = True
     cond_in_each_up_layer: bool = True
     use_pallas: bool = False
+    # the generator's ends: tanh (else a clamp to [-1, 1]) and conv_post's
+    # bias. Class attributes, not fields (the fields are the JAX package's);
+    # ``MelVocoderConfig`` makes them fields
+    use_tanh_at_final = True
+    use_bias_at_final = True
 
     @property
     def num_upsamples(self) -> int:
@@ -75,6 +80,26 @@ class BigVGANConfig:
 
     def stage_channels(self, i: int) -> int:
         return self.upsample_initial_channel // (2 ** (i + 1))
+
+    @property
+    def speaker_conditioned(self) -> bool:
+        """A speaker embedding enters (``cond_layer``, ``conds``); 0 wide
+        means none."""
+        return self.speaker_embedding_dim > 0
+
+
+@dataclass(frozen=True)
+class MelVocoderConfig(BigVGANConfig):
+    """BigVGAN-v2 as a mel vocoder (``bigvgan_v2_24khz_100band_256x``'s
+    config.json): a 100-band log-mel in, ×256, no speaker input, a clamp
+    to [-1, 1] in place of tanh and conv_post without a bias."""
+    gpt_dim: int = 100
+    upsample_rates: Sequence[int] = (4, 4, 2, 2, 2, 2)
+    upsample_kernel_sizes: Sequence[int] = (8, 8, 4, 4, 4, 4)
+    speaker_embedding_dim: int = 0
+    cond_in_each_up_layer: bool = False
+    use_tanh_at_final: bool = False
+    use_bias_at_final: bool = False
 
 
 @dataclass(frozen=True)
@@ -97,6 +122,40 @@ class EngineConfig:
     gpt_checkpoint: str = "gpt.pth"
     bigvgan_checkpoint: str = "bigvgan_generator.pth"
     dvae_checkpoint: str = "dvae.pth"
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    """F5-TTS's DiT backbone (``F5TTS_Base.yaml``'s ``arch``)."""
+    dim: int = 1024
+    depth: int = 22
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 2
+    text_dim: int = 512
+    conv_layers: int = 4
+    text_mask_padding: bool = False
+    pe_attn_head: int = 1
+    mel_dim: int = 100
+    # characters of the checkpoint's vocab.txt; 0 is the filler after +1
+    text_num_embeds: int = 2545
+    conv_pos_kernel: int = 31
+    conv_pos_groups: int = 16
+    time_freq_dim: int = 256
+    text_max_pos: int = 4096
+
+
+@dataclass(frozen=True)
+class F5Config:
+    """F5-TTS Base with the BigVGAN-v2 24 kHz 100-band ×256 mel vocoder:
+    the DiT, its sampler and the vocoder's generator."""
+    dit: DiTConfig = field(default_factory=DiTConfig)
+    vocoder: MelVocoderConfig = field(default_factory=MelVocoderConfig)
+    mel: MelConfig = field(default_factory=MelConfig)
+    nfe_step: int = 32
+    cfg_strength: float = 2.0
+    sway_sampling_coef: float = -1.0
+    target_rms: float = 0.1
 
 
 def load_config(path: str | Path) -> EngineConfig:

@@ -9,7 +9,11 @@ import numpy as np
 
 class BaseTTSEngine(ABC):
     """Engine contract: synthesize(text) -> (float32 audio, sample_rate);
-    optionally synthesize_to_duration for duration-aware strategies."""
+    optionally synthesize_to_duration for duration-aware strategies, and
+    ``synthesize_batch(texts, **kw)`` for batched ones, which also takes
+    ``durations`` (each line's seconds) where ``batch_duration_control``."""
+
+    batch_duration_control = False
 
     @abstractmethod
     def synthesize(self, text: str, **kwargs) -> Tuple[np.ndarray, int]:

@@ -1,6 +1,8 @@
 """Adaptive strategy: delegate duration targeting to the engine
 (spec: srt_dubbing/src/strategies/adaptive_strategy.py); raises when the
-engine can't control duration."""
+engine can't control duration. An engine whose batch takes durations
+voices every entry at its duration in batched calls; else one entry at a
+time through ``synthesize_to_duration``."""
 from __future__ import annotations
 
 from typing import Any, Dict, List
@@ -35,13 +37,18 @@ class AdaptiveStrategy(TimeSyncStrategy):
                 "duration-targeted synthesis; use another strategy")
         proc = create_process_logger("adaptive strategy synthesis")
         proc.start(f"{len(entries)} entries")
+        batch = self.batch_synthesize(entries, fixed_durations=True,
+                                      **kwargs)
         segments: List[Dict[str, Any]] = []
         for i, entry in enumerate(entries):
             preview = entry.text[:LOG.PROGRESS_TEXT_PREVIEW_LENGTH]
             proc.progress(i + 1, len(entries), f"entry {entry.index}: {preview}")
             try:
-                audio, sr = self.tts_engine.synthesize_to_duration(
-                    entry.text, entry.duration, **kwargs)
+                if batch is not None:
+                    audio, sr = batch[i]
+                else:
+                    audio, sr = self.tts_engine.synthesize_to_duration(
+                        entry.text, entry.duration, **kwargs)
                 segments.append(self.make_segment(entry, audio))
             except Exception as e:
                 log.error(f"entry {entry.index} failed: {e}")

@@ -30,15 +30,23 @@ class TimeSyncStrategy(ABC):
                         ) -> List[Dict[str, Any]]:
         ...
 
-    def batch_synthesize(self, entries: List[SRTEntry], **kwargs):
+    def batch_synthesize(self, entries: List[SRTEntry],
+                         fixed_durations: bool = False, **kwargs):
         """Synthesize all entries in one bucketed batch when the engine
         supports it (in place of the reference's sequential per-entry
-        loop). Returns list of (audio, sr) or None on fallback."""
+        loop); with ``fixed_durations``, each fixed to its entry's duration,
+        where the engine's batch takes durations
+        (``batch_duration_control``). Returns list of (audio, sr) or None
+        on fallback."""
         if not kwargs.get("batched", True):
             return None
         fn = getattr(self.tts_engine, "synthesize_batch", None)
         if fn is None:
             return None
+        if fixed_durations:
+            if not getattr(self.tts_engine, "batch_duration_control", False):
+                return None
+            kwargs = {**kwargs, "durations": [e.duration for e in entries]}
         try:
             return fn([e.text for e in entries], **kwargs)
         except Exception:

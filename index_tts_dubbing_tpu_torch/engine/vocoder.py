@@ -39,7 +39,7 @@ JAX package's type promotion does.
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,18 +54,47 @@ from index_tts_dubbing_tpu_torch.ops.resblock_cmajor import (pack_resblock,
                                                              resblock_cmajor)
 from index_tts_dubbing_tpu_torch.utils import profiling
 
-# halo: BigVGAN's receptive field in latent frames, ±12; 16 keeps window
-# seams exact
+# halo: 16 latent frames against the ×1024 generator's receptive field of
+# ±34 (``receptive_frames``): its outer frames weigh little, and a window
+# seam differs from the exact route by about a quarter of an int16 step
+# (7.7e-6 on a small seeded generator)
 DEFAULT_HALO = 16
+# input samples an anti-aliased activation reads on each side of its output
+# (ops/alias_free.py: the ×2 up-phases read x[t-3 .. t+3], the 12-tap
+# decimation up-samples 2t-5 .. 2t+6)
+ACT_RADIUS = 5
+
+
+def receptive_frames(cfg: BigVGANConfig) -> Tuple[int, int]:
+    """The input frames one output frame of the generator reads, (before,
+    after), worked backwards layer by layer from the output frame's
+    samples: conv_post and act_post, then each stage's widest resblock
+    (the three branches run side by side; each pair is act → dilated conv →
+    act → conv) and its transposed conv (output n reads the inputs j with
+    0 ≤ n + pad - j·u < k), then conv_pre. A window plan whose halo is at
+    least the larger of the two gives the exact route's output in every
+    kept frame."""
+    up = int(np.prod(cfg.upsample_rates))
+    lo, hi = 0, up - 1                    # output frame 0's samples
+    lo, hi = lo - 3 - ACT_RADIUS, hi + 3 + ACT_RADIUS
+    for i in reversed(range(cfg.num_upsamples)):
+        r = max(sum(2 * ACT_RADIUS + (d + 1) * (k - 1) // 2 for d in dils)
+                for k, dils in zip(cfg.resblock_kernel_sizes,
+                                   cfg.resblock_dilation_sizes))
+        lo, hi = lo - r, hi + r
+        u, k = cfg.upsample_rates[i], cfg.upsample_kernel_sizes[i]
+        pad = (k - u) // 2
+        lo, hi = -((-(lo + pad - k + 1)) // u), (hi + pad) // u
+    return 3 - lo, hi + 3
 
 
 def _conv1d_cm(p: Dict[str, Any], x: torch.Tensor, *, dilation: int = 1,
                padding: int = 0) -> torch.Tensor:
     """1-D conv over (B, C, T); weights in the shared (K, Cin, Cout) layout,
-    zero padding."""
+    zero padding; the bias where ``p`` has one."""
     y = F.conv1d(x, p["w"].to(x.dtype).permute(2, 1, 0), padding=padding,
                  dilation=dilation)
-    return y + p["b"].to(x.dtype)[:, None]
+    return y + p["b"].to(x.dtype)[:, None] if "b" in p else y
 
 
 def _conv_transpose1d_cm(p: Dict[str, Any], x: torch.Tensor, *, stride: int,
@@ -97,28 +126,30 @@ def pack_fused_resblocks(params: Dict[str, Any], cfg: BigVGANConfig,
 
 
 def _vocode_window_cmajor(params: Dict[str, Any], cfg: BigVGANConfig,
-                         latent: torch.Tensor, spk: torch.Tensor,
+                         latent: torch.Tensor, spk: Optional[torch.Tensor],
                          use_pallas: bool = True,
                          fuse_resblocks: bool = True,
                          packed: Optional[Dict[int, Tuple]] = None
                          ) -> torch.Tensor:
-    """Windows (B, W, gpt_dim) + speaker embedding ((1|B), 1, spk_dim) →
-    wav (B, W·1024), entirely in the (B, C, T) layout. ``fuse_resblocks``:
+    """Windows (B, W, gpt_dim) + speaker embedding ((1|B), 1, spk_dim), or
+    None for the mel vocoder → wav (B, W·upsample), entirely in the (B, C,
+    T) layout. ``fuse_resblocks``:
     K2 for each resblock of the C ≤ 128 stages; ``use_pallas``: K1 for
     every activation outside those (JAX ``vocoder.py:285-304``); both off
     is the exact route. ``packed``: K2's weights from
     ``pack_fused_resblocks`` for the compute dtype (None packs inline)."""
-    if spk.shape[0] == 1 and latent.shape[0] > 1:
-        spk = spk.expand((latent.shape[0],) + spk.shape[1:])
-    spk_cm = spk.transpose(1, 2)
     x = _conv1d_cm(params["conv_pre"], latent.transpose(1, 2), padding=3)
-    x = x + _conv1d_cm(params["cond_layer"], spk_cm)
+    if spk is not None:
+        if spk.shape[0] == 1 and latent.shape[0] > 1:
+            spk = spk.expand((latent.shape[0],) + spk.shape[1:])
+        spk_cm = spk.transpose(1, 2)
+        x = x + _conv1d_cm(params["cond_layer"], spk_cm)
     for i in range(cfg.num_upsamples):
         u = cfg.upsample_rates[i]
         k = cfg.upsample_kernel_sizes[i]
         x = _conv_transpose1d_cm(params["ups"][i], x, stride=u,
                                  padding=(k - u) // 2)
-        if cfg.cond_in_each_up_layer:
+        if cfg.cond_in_each_up_layer and spk is not None:
             x = x + _conv1d_cm(params["conds"][i], spk_cm)
         xs = None
         for j in range(cfg.num_kernels):
@@ -144,15 +175,17 @@ def _vocode_window_cmajor(params: Dict[str, Any], cfg: BigVGANConfig,
         x = xs / cfg.num_kernels
     x = _act_cm(cfg, params["act_post"], x, use_pallas)
     x = _conv1d_cm(params["conv_post"], x, padding=3)
-    return torch.tanh(x)[:, 0, :]
+    return bigvgan.final(cfg, x)[:, 0, :]
 
 
 def _vocode_window(params: Dict[str, Any], cfg: BigVGANConfig,
-                   latent: torch.Tensor, spk: torch.Tensor) -> torch.Tensor:
-    """Windows (B, W, gpt_dim) + speaker embedding ((1|B), 1, spk_dim) →
-    wav (B, W·1024) through the reference-structured channels-last stages;
-    kernel B3 for every activation when ``cfg.use_pallas``."""
-    if spk.shape[0] == 1 and latent.shape[0] > 1:
+                   latent: torch.Tensor, spk: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """Windows (B, W, gpt_dim) + speaker embedding ((1|B), 1, spk_dim), or
+    None for the mel vocoder → wav (B, W·upsample) through the
+    reference-structured channels-last stages; kernel B3 for every
+    activation when ``cfg.use_pallas``."""
+    if spk is not None and spk.shape[0] == 1 and latent.shape[0] > 1:
         spk = spk.expand((latent.shape[0],) + spk.shape[1:])
     return bigvgan.generate(params, cfg, latent, spk)
 
@@ -173,7 +206,7 @@ def fuse_bigvgan_params(params: Dict[str, Any], cfg: BigVGANConfig
     f32 = lambda t: t.to(dev, torch.float32)
     fused: Dict[str, Any] = {k: params[k] for k in (
         "conv_pre", "cond_layer", "conds", "ups", "act_post", "conv_post",
-        "speaker_encoder")}
+        "speaker_encoder") if k in params}
     fused["stages"] = []
     w1_max = max(d * (k - 1) + 1
                  for k, ds in zip(cfg.resblock_kernel_sizes,
@@ -212,11 +245,11 @@ def fuse_bigvgan_params(params: Dict[str, Any], cfg: BigVGANConfig
 
 
 def _vocode_window_fused(params: Dict[str, Any], cfg: BigVGANConfig,
-                         latent: torch.Tensor, spk: torch.Tensor
+                         latent: torch.Tensor, spk: Optional[torch.Tensor]
                          ) -> torch.Tensor:
     """The grouped window form over ``fuse_bigvgan_params``'s tree: windows
-    (B, W, gpt_dim) + speaker embedding ((1|B), 1, spk_dim) → wav
-    (B, W·1024), channels-last. Each stage runs its ``num_kernels``
+    (B, W, gpt_dim) + speaker embedding ((1|B), 1, spk_dim), or None for
+    the mel vocoder → wav (B, W·upsample), channels-last. Each stage runs its ``num_kernels``
     resblock branches side by side as 3·C channels: per pair an
     anti-aliased activation, a grouped dense conv, an activation and a
     second grouped conv, then the residual; the branches' mean closes the
@@ -226,16 +259,17 @@ def _vocode_window_fused(params: Dict[str, Any], cfg: BigVGANConfig,
     mean's summation order changing only rounding."""
     nb = cfg.num_kernels
     exact = replace(cfg, use_pallas=False)
-    if spk.shape[0] == 1 and latent.shape[0] > 1:
-        spk = spk.expand((latent.shape[0],) + spk.shape[1:])
     x = nn.conv1d(params["conv_pre"], latent, padding=3)
-    x = x + nn.conv1d(params["cond_layer"], spk)
+    if spk is not None:
+        if spk.shape[0] == 1 and latent.shape[0] > 1:
+            spk = spk.expand((latent.shape[0],) + spk.shape[1:])
+        x = x + nn.conv1d(params["cond_layer"], spk)
     for i in range(cfg.num_upsamples):
         u = cfg.upsample_rates[i]
         k = cfg.upsample_kernel_sizes[i]
         x = nn.conv_transpose1d(params["ups"][i], x, stride=u,
                                 padding=(k - u) // 2)
-        if cfg.cond_in_each_up_layer:
+        if cfg.cond_in_each_up_layer and spk is not None:
             x = x + nn.conv1d(params["conds"][i], spk)
         st = params["stages"][i]
         w1_pad = (st["w1"].shape[1] - 1) // 2
@@ -255,7 +289,7 @@ def _vocode_window_fused(params: Dict[str, Any], cfg: BigVGANConfig,
         x = xs.reshape(b, t, nb, -1).mean(dim=2)
     x = bigvgan._act(cfg, params["act_post"], x)
     x = nn.conv1d(params["conv_post"], x, padding=3)
-    return torch.tanh(x)[..., 0]
+    return bigvgan.final(cfg, x)[..., 0]
 
 
 def speaker_embedding(params: Dict[str, Any], mel_ref: torch.Tensor) -> torch.Tensor:
@@ -318,7 +352,8 @@ class WindowedVocoder:
                                         fuse_resblocks=False)
         packed = None
         if self.fuse_resblocks:
-            dt = torch.promote_types(windows.dtype, spk.dtype)
+            dt = (windows.dtype if spk is None
+                  else torch.promote_types(windows.dtype, spk.dtype))
             if dt not in self._packed:
                 self._packed[dt] = pack_fused_resblocks(self.params,
                                                         self.cfg, dt)
@@ -360,29 +395,84 @@ class WindowedVocoder:
             yield wins[c0: c0 + n]
             c0 += n
 
-    def _collect(self, out: torch.Tensor, chunk, wavs: torch.Tensor) -> None:
+    def _collect(self, outs: List[torch.Tensor], chunk,
+                 wavs: torch.Tensor) -> None:
+        """Write each window's kept frames, ``chunk``'s (row, start, end,
+        window_lo), into its row's output ``outs[row]``."""
         up = self.upsample
-        for i, (s, e, lo) in enumerate(chunk):
+        for wv, (r, s, e, lo) in zip(wavs, chunk):
             off = s - lo
-            out[s * up: e * up] = wavs[i, off * up: (off + e - s) * up]
+            outs[r][s * up: e * up] = wv[off * up: (off + e - s) * up]
 
-    def _apply_edge_patches(self, out: torch.Tensor, t: int, fetch,
-                            spk: torch.Tensor) -> None:
-        """Overwrite out[: halo·up] and out[(t-halo)·up :] with the exact
-        route's outputs over 2·halo-frame patches at the two stream ends;
+    def _apply_edge_patches(self, outs: List[torch.Tensor], ends, fetch,
+                            spk: Optional[torch.Tensor]) -> None:
+        """For each (row, t) of ``ends``, overwrite outs[row][: halo·up] and
+        outs[row][(t-halo)·up :] with the exact route's outputs over
+        2·halo-frame patches at the stream's two ends, all in one batch;
         each patch keeps its boundary half, whose other edge is ≥ halo from
-        every kept sample. ``fetch(lo, pw)`` returns latent frames
-        [lo, lo+pw) as (pw, C). Only with ``edge_exact`` on a route that
-        departs from the exact one at the ends (JAX ``vocoder.py:514``)."""
-        if not (self.edge_exact and self._edge_approx()):
+        every kept sample. ``fetch(row, lo, pw)`` returns the row's latent
+        frames [lo, lo+pw) as (pw, C). Only with ``edge_exact`` on a route
+        that departs from the exact one at the ends (JAX
+        ``vocoder.py:514``)."""
+        if not (self.edge_exact and self._edge_approx()) or not ends:
             return
         pw = 2 * self.halo
-        up = self.upsample
-        with profiling.span("vocoder.exact", device=out.device):
-            patches = torch.stack([fetch(0, pw), fetch(t - pw, pw)])
-            ewav = self._vocode(patches, spk[:1], exact=True).float()
-            out[: self.halo * up] = ewav[0, : self.halo * up]
-            out[(t - self.halo) * up: t * up] = ewav[1, self.halo * up:]
+        hu = self.halo * self.upsample
+        dev = outs[ends[0][0]].device
+        with profiling.span("vocoder.exact", device=dev):
+            patches = torch.stack([fetch(r, 0, pw) for r, _ in ends]
+                                  + [fetch(r, t - pw, pw) for r, t in ends])
+            ewav = self._vocode(patches, None if spk is None else spk[:1],
+                                exact=True).float()
+            for i, (r, t) in enumerate(ends):
+                outs[r][:hu] = ewav[i, :hu]
+                outs[r][t * self.upsample - hu:] = ewav[len(ends) + i, hu:]
+
+    def stream_rows(self, lat: torch.Tensor, lens: Sequence[int]
+                    ) -> List[torch.Tensor]:
+        """Vocode each row of ``lat`` (rows, MB, C) as a stream of its own,
+        ``lat[r, :lens[r]]``, with no speaker input (the mel vocoder), in one
+        static plan whose lengths the host knows, so it reads nothing from
+        the device: the windows of every row longer than window + 2·halo
+        (``_window_list``, each row's windows clamped inside it) in batches
+        (``_plan_batches``); then ``_apply_edge_patches`` at both ends of
+        every such row, in one batch; a row no longer than window + 2·halo
+        runs whole at its own length (by the exact route with
+        ``edge_exact``), with the rows of its length. Returns each row's
+        float32 wav (lens[r]·upsample,) on the device."""
+        lens = [int(n) for n in lens]
+        dev = lat.device
+        mb = lat.shape[1]
+        flat = lat.to(self.compute_dtype).reshape(-1, lat.shape[-1])
+        full = self.window + 2 * self.halo
+        outs: List[Optional[torch.Tensor]] = [
+            torch.zeros(0, dtype=torch.float32, device=dev) if n == 0
+            else None for n in lens]
+        rows = [r for r, n in enumerate(lens) if n > full]
+        if rows:
+            with profiling.span("vocoder.plan", device=dev):
+                for r in rows:
+                    outs[r] = torch.empty(lens[r] * self.upsample,
+                                          dtype=torch.float32, device=dev)
+                wins = [(r, s, e, lo) for r in rows
+                        for s, e, lo in self._window_list(lens[r])]
+                for chunk in self._plan_batches(wins):
+                    x = torch.stack([flat[r * mb + lo: r * mb + lo + full]
+                                     for r, _, _, lo in chunk])
+                    self._collect(outs, chunk,
+                                  self._vocode(x, None, exact=False).float())
+            self._apply_edge_patches(
+                outs, [(r, lens[r]) for r in rows],
+                lambda r, lo, pw: flat[r * mb + lo: r * mb + lo + pw], None)
+        for n in sorted({n for n in lens if 0 < n <= full}):
+            same = [r for r, m in enumerate(lens) if m == n]
+            route = "vocoder.exact" if self.edge_exact else "vocoder.plan"
+            with profiling.span(route, device=dev):
+                x = torch.stack([flat[r * mb: r * mb + n] for r in same])
+                wavs = self._vocode(x, None, exact=self.edge_exact).float()
+            for wv, r in zip(wavs, same):
+                outs[r] = wv
+        return outs
 
     def __call__(self, latent, mel_ref=None,
                  spk: Optional[torch.Tensor] = None) -> np.ndarray:
@@ -436,12 +526,14 @@ class WindowedVocoder:
                 return wav.float().cpu().numpy()
         out = torch.empty(t * self.upsample, dtype=torch.float32, device=dev)
         with profiling.span("vocoder.plan", device=dev):
-            for chunk in self._plan_batches(self._window_list(t)):
+            wins = [(0, s, e, lo) for s, e, lo in self._window_list(t)]
+            for chunk in self._plan_batches(wins):
                 idx = torch.stack([flatmap[lo: lo + full]
-                                   for (_, _, lo) in chunk])
+                                   for (_, _, _, lo) in chunk])
                 wavs = self._vocode(flat[idx], spk, exact=False).float()
-                self._collect(out, chunk, wavs)
+                self._collect([out], chunk, wavs)
         self._apply_edge_patches(
-            out, t, lambda lo, pw: flat[flatmap[lo: lo + pw]], spk)
+            [out], [(0, t)], lambda _, lo, pw: flat[flatmap[lo: lo + pw]],
+            spk)
         with profiling.sync("wav"):
             return out.cpu().numpy()

@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``models/bigvgan.py``: gpt latent
 (B, T, gpt_dim) → conv_pre(k7) → + speaker conditioning → 6 transposed-conv
 upsample stages (×1024 in all), each with its speaker-conditioning add and
 3 anti-aliased-snake AMP resblocks → snakebeta → conv_post(k7) → tanh →
-(B, T·1024) waveform. Every anti-aliased activation reads
+(B, T·1024) waveform. The mel-vocoder form (``MelVocoderConfig``: a
+log-mel in, ×256, no speaker input, conv_post without a bias and a clamp to
+[-1, 1] for tanh) takes ``spk`` None. Every anti-aliased activation reads
 ``cfg.use_pallas``: False is the exact route, True is kernel B3
 (ops/snake_clast.py). The parameters come from ``weights.init_bigvgan`` or
 ``weights.from_jax_params``.
@@ -14,7 +16,7 @@ structure is the windowed vocoder's ``layout="ref"``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -49,18 +51,25 @@ def _amp_block(cfg: BigVGANConfig, p: Params, x: torch.Tensor, k: int,
     return x
 
 
+def final(cfg: BigVGANConfig, x: torch.Tensor) -> torch.Tensor:
+    """The generator's last op: tanh, or a clamp to [-1, 1]."""
+    return torch.tanh(x) if cfg.use_tanh_at_final else x.clamp(-1.0, 1.0)
+
+
 def generate(params: Params, cfg: BigVGANConfig, latent: torch.Tensor,
-             spk: torch.Tensor) -> torch.Tensor:
-    """latent (B, T, gpt_dim) + speaker embedding (B, 1, spk_dim) → wav
-    (B, T·1024): the generator after the speaker encoder."""
+             spk: Optional[torch.Tensor]) -> torch.Tensor:
+    """latent (B, T, gpt_dim) + speaker embedding (B, 1, spk_dim), or None
+    for the mel vocoder → wav (B, T·upsample): the generator after the
+    speaker encoder."""
     x = nn.conv1d(params["conv_pre"], latent, padding=3)
-    x = x + nn.conv1d(params["cond_layer"], spk)
+    if spk is not None:
+        x = x + nn.conv1d(params["cond_layer"], spk)
     for i in range(cfg.num_upsamples):
         u = cfg.upsample_rates[i]
         k = cfg.upsample_kernel_sizes[i]
         x = nn.conv_transpose1d(params["ups"][i], x, stride=u,
                                 padding=(k - u) // 2)
-        if cfg.cond_in_each_up_layer:
+        if cfg.cond_in_each_up_layer and spk is not None:
             x = x + nn.conv1d(params["conds"][i], spk)
         xs = None
         for j in range(cfg.num_kernels):
@@ -71,7 +80,7 @@ def generate(params: Params, cfg: BigVGANConfig, latent: torch.Tensor,
         x = xs / cfg.num_kernels
     x = _act(cfg, params["act_post"], x)
     x = nn.conv1d(params["conv_post"], x, padding=3)
-    return torch.tanh(x)[..., 0]
+    return final(cfg, x)[..., 0]
 
 
 def forward(params: Params, cfg: BigVGANConfig, latent: torch.Tensor,

@@ -26,7 +26,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from index_tts_dubbing_tpu_torch.config import (BigVGANConfig, EngineConfig,
+from index_tts_dubbing_tpu_torch.config import (BigVGANConfig, DiTConfig,
+                                                EngineConfig, F5Config,
                                                 GPTConfig)
 from index_tts_dubbing_tpu_torch.models import conformer, ecapa
 
@@ -331,6 +332,9 @@ def _snake(r: Init, ch: int, cfg: BigVGANConfig) -> Params:
 
 
 def init_bigvgan(r: Init, cfg: BigVGANConfig) -> Params:
+    """The generator's tree; the mel-vocoder form (``MelVocoderConfig``)
+    has no ``conds``, ``cond_layer`` or speaker encoder and may have no
+    conv_post bias."""
     p: Params = {"conv_pre": r.conv1d(cfg.gpt_dim, cfg.upsample_initial_channel, 7),
                  "ups": [], "resblocks": [], "conds": []}
     ch_in = cfg.upsample_initial_channel
@@ -343,14 +347,65 @@ def init_bigvgan(r: Init, cfg: BigVGANConfig) -> Params:
                 "convs2": [r.conv1d(ch, ch, k) for _ in range(3)],
                 "acts": [_snake(r, ch, cfg) for _ in range(6)],
             })
-        p["conds"].append(r.conv1d(cfg.speaker_embedding_dim, ch, 1))
+        if cfg.speaker_conditioned:
+            p["conds"].append(r.conv1d(cfg.speaker_embedding_dim, ch, 1))
         ch_in = ch
     p["act_post"] = _snake(r, ch_in, cfg)
     p["conv_post"] = r.conv1d(ch_in, 1, 7)
+    if not cfg.use_bias_at_final:
+        del p["conv_post"]["b"]
+    if not cfg.speaker_conditioned:
+        del p["conds"]
+        return p
     p["cond_layer"] = r.conv1d(cfg.speaker_embedding_dim,
                                cfg.upsample_initial_channel, 1)
     p["speaker_encoder"] = init_ecapa(r, cfg.num_mels, cfg.speaker_embedding_dim)
     return p
+
+
+def init_dit(r: Init, cfg: DiTConfig) -> Params:
+    """F5-TTS's DiT (models/dit.py) with torch's default draws (uniform
+    fan-in bounds, N(0, 1) for the text embedding), LayerNorm at one and
+    zero, and GRN's gamma and beta drawn in ±0.5 (zero in the published
+    initialisation, which a trained model leaves)."""
+    d, t, m = cfg.dim, cfg.text_dim, cfg.mel_dim
+    inner = cfg.heads * cfg.dim_head
+    k, g = cfg.conv_pos_kernel, cfg.conv_pos_groups
+    return {
+        "text": {
+            "emb": {"w": r.normal((cfg.text_num_embeds + 1, t), 1.0)},
+            "blocks": [{
+                "dw": r.conv1d(t, t, 7, groups=t),
+                "norm": r.layer_norm(t),
+                "pw1": r.linear(t, 2 * t),
+                "grn": {"gamma": r.uniform((2 * t,), 0.5),
+                        "beta": r.uniform((2 * t,), 0.5)},
+                "pw2": r.linear(2 * t, t),
+            } for _ in range(cfg.conv_layers)],
+        },
+        "time": {"l1": r.linear(cfg.time_freq_dim, d), "l2": r.linear(d, d)},
+        "input": {"proj": r.linear(2 * m + t, d),
+                  "conv1": r.conv1d(d, d, k, groups=g),
+                  "conv2": r.conv1d(d, d, k, groups=g)},
+        "blocks": [{
+            "mod": r.linear(d, 6 * d),
+            "q": r.linear(d, inner), "k": r.linear(d, inner),
+            "v": r.linear(d, inner), "o": r.linear(inner, d),
+            "ff1": r.linear(d, cfg.ff_mult * d),
+            "ff2": r.linear(cfg.ff_mult * d, d),
+        } for _ in range(cfg.depth)],
+        "final": {"mod": r.linear(d, 2 * d), "proj": r.linear(d, m)},
+    }
+
+
+def init_f5(cfg: F5Config, generator: torch.Generator, device="cuda",
+            dtype: torch.dtype = torch.float32) -> Params:
+    """Random {"dit", "vocoder"} parameters for ``cfg`` on ``device``: the
+    DiT in ``dtype``, the vocoder in float32."""
+    r = Init(generator, device)
+    dit = init_dit(r, cfg.dit)
+    return {"dit": cast_floating(dit, dtype) if dtype != torch.float32
+            else dit, "vocoder": init_bigvgan(r, cfg.vocoder)}
 
 
 def init(cfg: EngineConfig, generator: torch.Generator, device="cuda",

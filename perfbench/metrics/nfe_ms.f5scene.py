@@ -1,0 +1,13 @@
+"""Mean device ms of one guided DiT forward (the engine's ``f5.nfe`` spans:
+the conditioned and unconditioned rows as one batch, the guidance and the
+Euler update), over the device-only traced stretch."""
+from perfbench import spans
+
+
+def read(data):
+    reqs = spans.traced_requests(data)
+    if reqs is None:
+        return None
+    ms = [s.device_ms for r in reqs for s in r
+          if s.name == "f5.nfe" and s.device_ms is not None]
+    return sum(ms) / len(ms) if ms else None
