@@ -232,7 +232,7 @@ import torch.nn.functional as F
 
 from index_tts_dubbing_tpu_torch import cli as cli_mod
 from index_tts_dubbing_tpu_torch import weights
-from index_tts_dubbing_tpu_torch.config import EngineConfig
+from index_tts_dubbing_tpu_torch.config import EngineConfig, MelVocoderConfig
 from index_tts_dubbing_tpu_torch.dubbing import cli as dub_cli
 from index_tts_dubbing_tpu_torch.dubbing import config as dub_config
 from index_tts_dubbing_tpu_torch.dubbing import engines as dub_engines
@@ -630,6 +630,174 @@ def check_ragged(gen: torch.Generator) -> dict:
                 out[name].append({"dtype": str(dt), "shape": list(shape),
                                   "params": case, "max_abs_err": err,
                                   "tol": lim})
+    return out
+
+
+# The exact work the cells run, as (name, vocoder, batch, frames): the
+# ×1024 vocoder's two 32-frame edge patches and a 35- and a 143-frame
+# stream vocoded whole; the ×256 mel vocoder's 32 patches of 76 frames (the
+# 16-line scene's) and a 188-frame line.
+EXACT_WORK = [("patches32", "indextts", 2, 32), ("stream35", "indextts", 1, 35),
+              ("stream143", "indextts", 1, 143),
+              ("f5_patches76", "f5", 32, 76), ("f5_line188", "f5", 1, 188)]
+EXACT_RATES = {"indextts": (4, 4, 4, 4, 2, 2), "f5": (4, 4, 2, 2, 2, 2)}
+# tensors shorter than a run, under K2's chain span and under twice it, as
+# (C, T): one K2 tile reaches both ends
+EXACT_SHORT = [(24, 1), (24, 5), (96, 40), (96, 150), (48, 190)]
+
+
+def summarize_exact(exact: dict) -> dict:
+    """Per case of EXACT_WORK: the float32 ms of one exact batch's K1 and
+    K2 launches (18 a C > 128 stage, act_post once, K2 once per k and
+    stage) beside the exact route's; the worst error per kernel and
+    dtype."""
+    per = {}
+    for kernel, rows in exact.items():
+        for r in rows:
+            if "ms" not in r:
+                continue
+            n = 1 if kernel == "resblock_cmajor" or r["shape"][1] == 24 \
+                else 18
+            d = per.setdefault(r["case"], {"kernels_ms": 0.0,
+                                           "exact_route_ms": 0.0})
+            d["kernels_ms"] += n * r["ms"]
+            d["exact_route_ms"] += n * r["exact_route_ms"]
+    worst = {kernel: {dt: max(r["max_abs_err"] for r in rows
+                              if r["dtype"] == dt)
+                      for dt in ("torch.float32", "torch.bfloat16")}
+             for kernel, rows in exact.items()}
+    return {"per_batch": per, "max_abs_err": worst}
+
+
+def exact_launches(rates, b: int, frames: int):
+    """K1's (C, T) and K2's (C, T) launches of one exact batch: K1 at the
+    C > 128 stages (18 activations each) and act_post, K2 at the rest."""
+    k1_shapes, k2_shapes, t, c = [], [], frames, 1536
+    for u in rates:
+        t, c = t * u, c // 2
+        (k1_shapes if c > 128 else k2_shapes).append((b, c, t))
+    return k1_shapes + [(b, 24, t)], k2_shapes
+
+
+def _vs(got, ref, dt, name):
+    err = (got.float() - ref.float()).abs().max().item()
+    lim = TOL[dt] * max(1.0, ref.float().abs().max().item())
+    if not err <= lim:
+        raise AssertionError(f"{name}: err {err} > {lim}")
+    return err, lim
+
+
+def check_exact_edge(gen: torch.Generator) -> dict:
+    """K1 and K2 in exact-edge mode against their plain versions (the exact
+    route's own ops, in float32: bfloat16 inputs and weights are compared
+    against the float32 route over the same values) within TOL, at every
+    launch of EXACT_WORK and at EXACT_SHORT; float32 timed beside the exact
+    route (cuDNN's convs in TF32, as the engine runs them), and the default
+    mode's distance from the exact route reported beside."""
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    out = {"snake_cmajor": [], "resblock_cmajor": []}
+    cases = [(name, *exact_launches(EXACT_RATES[voc], b, f))
+             for name, voc, b, f in EXACT_WORK]
+    cases.append(("short", [(2, c, t) for c, t in EXACT_SHORT],
+                  [(2, c, t) for c, t in EXACT_SHORT]))
+    for dt in (torch.float32, torch.bfloat16):
+        timed = dt == torch.float32
+        for name, k1_shapes, k2_shapes in cases:
+            for b, c, t in dict.fromkeys(k1_shapes):
+                x = rand(b, c, t).to(dt)
+                al, be = rand(c) * 0.3, rand(c) * 0.3
+                ref = k1.snake_cmajor_plain(x.float(), al, be, True,
+                                            exact_edge=True)
+                got = k1.snake_cmajor(x, al, be, True, exact_edge=True)
+                err, lim = _vs(got, ref, dt, f"K1 exact {dt} {(b, c, t)}")
+                row = {"case": name, "dtype": str(dt), "shape": [b, c, t],
+                       "max_abs_err": err, "tol": lim,
+                       "default_mode_err": (k1.snake_cmajor(x, al, be, True)
+                                            .float() - ref).abs().max().item()}
+                if timed and name != "short":
+                    row["ms"] = cuda_ms(lambda: k1.snake_cmajor(
+                        x, al, be, True, exact_edge=True), 10)
+                    row["exact_route_ms"] = cuda_ms(
+                        lambda: k1.snake_cmajor_plain(x, al, be, True,
+                                                      exact_edge=True), 3)
+                out["snake_cmajor"].append(row)
+            for b, c, t in dict.fromkeys(k2_shapes):
+                for k in (3, 7, 11):
+                    rb = rand_resblock(rand, c, k)
+                    w = k2.pack_resblock(rb, EngineConfig().bigvgan, dt,
+                                         exact_edge=True)
+                    w32 = [p.float() for p in w]
+                    x = (rand(b, c, t) * 0.5).to(dt)
+                    ref = k2.resblock_cmajor_plain(x.float(), *w32, k, DILS,
+                                                   exact_edge=True)
+                    got = k2.resblock_cmajor(x, *w, k, DILS, exact_edge=True)
+                    err, lim = _vs(got, ref, dt,
+                                   f"K2 exact {dt} {(b, c, t)} k={k}")
+                    row = {"case": name, "dtype": str(dt), "shape": [b, c, t],
+                           "k": k, "max_abs_err": err, "tol": lim,
+                           "tt": k2.pick_tile(c, k, DILS, t),
+                           "default_mode_err": (
+                               k2.resblock_cmajor(x, *w, k, DILS).float()
+                               - ref).abs().max().item()}
+                    if timed and name != "short":
+                        row["ms"] = cuda_ms(lambda: k2.resblock_cmajor(
+                            x, *w, k, DILS, exact_edge=True), 3)
+                        torch.backends.cudnn.allow_tf32 = True
+                        try:
+                            row["exact_route_ms"] = cuda_ms(
+                                lambda: k2.resblock_cmajor_plain(
+                                    x, *w, k, DILS, exact_edge=True), 2)
+                        finally:
+                            torch.backends.cudnn.allow_tf32 = False
+                    out["resblock_cmajor"].append(row)
+    return out
+
+
+def run_exact_vocoder(gen: torch.Generator) -> dict:
+    """The vocoder's exact work (``_vocode(..., exact=True)``) at
+    EXACT_WORK's shapes, on the kernel route (K1 and K2 in exact-edge mode)
+    against the plain route, float32 (TF32 off), within VOCODER_TOL: the
+    ×1024 BigVGAN with a speaker input and the ×256 mel vocoder, full
+    width, random weights. Each timed on both routes as the engine runs
+    them (cuDNN in TF32), host-synchronised, beside its K1/K2 launches."""
+    out = {}
+    vocs = {}
+    for voc_name, cfg in (("indextts", EngineConfig().bigvgan),
+                          ("f5", MelVocoderConfig())):
+        p = weights.init_bigvgan(weights.Init(gen, "cuda"), cfg)
+        spk = (torch.randn(1, 1, cfg.speaker_embedding_dim, generator=gen,
+                           device="cuda") * 0.1
+               if cfg.speaker_conditioned else None)
+        vocs[voc_name] = (voc_mod.WindowedVocoder(p, cfg),
+                          voc_mod.WindowedVocoder(p, cfg, use_pallas=False,
+                                                  fuse_resblocks=False,
+                                                  edge_exact=True), cfg, spk)
+    for name, voc_name, b, frames in EXACT_WORK:
+        fast, plain, cfg, spk = vocs[voc_name]
+        x = torch.randn(b, frames, cfg.gpt_dim, generator=gen,
+                        device="cuda") * 0.5
+        zero_counts()
+        got = fast._vocode(x, spk, exact=True)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        want = plain._vocode(x, spk, exact=True)
+        err = float((got.float() - want.float()).abs().max())
+        if not (err <= VOCODER_TOL and counts.get("snake_cmajor")
+                and counts.get("resblock_cmajor")):
+            raise AssertionError(f"exact vocoder {name}: err {err}, "
+                                 f"launches {counts}")
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            ms = _wall_ms(lambda: fast._vocode(x, spk, exact=True), 5)
+            route_ms = _wall_ms(lambda: plain._vocode(x, spk, exact=True), 3)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        out[name] = {"batch": b, "frames": frames, "max_abs_err": err,
+                     "launches": counts, "kernels_ms": ms,
+                     "exact_route_ms": route_ms}
+    del vocs
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2393,7 +2561,9 @@ def switched(tts: IndexTTS, setting, params=None, dtype=None):
 def run_switches(tts: IndexTTS, res, spk: torch.Tensor):
     """stream_device on the multi request's first row (600 frames, two
     window batches) through a vocoder of each of SWITCHES, counted from
-    zero: K1 and K2 as PER_BATCH per window batch, nothing else. Each held
+    zero: K1 and K2 as PER_BATCH per vocoder batch (the window batches and,
+    with edge_exact, the patches' batch in exact-edge mode), nothing else.
+    Each held
     to the exact route over the whole stream in one piece: within
     VOCODER_TOL at least EDGE_FRAMES from the ends, and over the whole wav
     within VOCODER_TOL with edge_exact (the ends patched), EDGE_TOL without.
@@ -2417,8 +2587,9 @@ def run_switches(tts: IndexTTS, res, spk: torch.Tensor):
         stream_s = time.perf_counter() - t0
         counts = read_counts()
         n1, n2 = PER_BATCH[setting[:2]]
+        kb = batches + setting[2]
         want = {k: 0 for k in COUNTED}
-        want.update(snake_cmajor=n1 * batches, resblock_cmajor=n2 * batches)
+        want.update(snake_cmajor=n1 * kb, resblock_cmajor=n2 * kb)
         if counts != want:
             raise AssertionError(f"switches {name}: launches {counts}, want "
                                  f"{want}")
@@ -2451,7 +2622,8 @@ def run_switches(tts: IndexTTS, res, spk: torch.Tensor):
 def run_fused_k1_only(tts: IndexTTS, prompt: str, spk: torch.Tensor):
     """infer_fast on the one-program flavour (TEXTS[2] at max_mel_tokens=256)
     with ``tts.vocoder`` set to (use_pallas, not fuse_resblocks,
-    edge_exact): K1 109 per window batch, K2 none; the usual int16 checks
+    edge_exact): K1 109 per vocoder batch (the window batches and the
+    patches' batch in exact-edge mode), K2 none; the usual int16 checks
     and the wav within VOCODER_TOL of the same vocoder's stream_device."""
     engine_voc = tts.vocoder
     voc = tts.vocoder = switched(tts, (True, False, True))
@@ -2467,7 +2639,7 @@ def run_fused_k1_only(tts: IndexTTS, prompt: str, spk: torch.Tensor):
     windows = res.wav.numel() // (voc.window * voc.upsample)
     batches = len(list(voc._plan_batches(list(range(windows)))))
     want = {k: 0 for k in COUNTED}
-    want["snake_cmajor"] = PER_BATCH[(True, False)][0] * batches
+    want["snake_cmajor"] = PER_BATCH[(True, False)][0] * (batches + 1)
     if counts != want:
         raise AssertionError(f"infer_fast-k1: launches {counts}, want {want}")
     t = int(res.stream_frames)
@@ -2492,7 +2664,8 @@ def run_switch_timing(tts: IndexTTS, res, spk: torch.Tensor) -> dict:
     """Float32 ms (host, synchronised) of one window batch of 4 windows of
     the multi request's latents through each of SWITCHES and the exact
     route, on the engine's vocoder weights cast to float32; the edge
-    patches' ms (two 2·halo-frame patches, the exact route) beside them."""
+    patches' ms (two 2·halo-frame patches) beside them, on the exact route
+    and on K1/K2's exact-edge mode."""
     p32 = weights.cast_floating(tts.params["bigvgan"], torch.float32)
     voc = tts.vocoder
     full = voc.window + 2 * voc.halo
@@ -2505,6 +2678,9 @@ def run_switch_timing(tts: IndexTTS, res, spk: torch.Tensor) -> dict:
         v = switched(tts, setting, p32, torch.float32)
         out[f"{label(setting)}_window_batch_ms"] = _wall_ms(
             lambda: v._vocode(win, spk, exact=False), reps=5)
+        if setting == SWITCHES[0]:
+            out["edge_patches_kernels_ms"] = _wall_ms(
+                lambda: v._vocode(patches, spk[:1], exact=True), reps=5)
     out["edge_patches_ms"] = _wall_ms(
         lambda: v._vocode(patches, spk[:1], exact=True), reps=5)
     del p32
@@ -2715,6 +2891,9 @@ def main() -> int:
           f"versions at {len(ragged['snake_cmajor'])} + "
           f"{len(ragged['snake_clast'])} ragged cases)")
     t1 = time.perf_counter()
+    exact = check_exact_edge(torch.Generator("cuda").manual_seed(6))
+    phase("kernels/exact-edge", t1, json.dumps(summarize_exact(exact)))
+    t1 = time.perf_counter()
     perms = check_permutes(torch.Generator("cuda").manual_seed(1))
     phase("kernels/permute", t1, "(copy_on_fork and the four gathers equal "
           f"their plain versions in {len(perms['copy_on_fork'])} + "
@@ -2760,6 +2939,10 @@ def main() -> int:
         t1 = time.perf_counter()
         verr = check_vocoder(tts)
         phase("main/vocoder-vs-exact", t1, f"max_abs_err {verr:.3g}")
+
+        t1 = time.perf_counter()
+        phase("main/vocoder-exact-edge", t1, json.dumps(
+            run_exact_vocoder(torch.Generator("cuda").manual_seed(7))))
 
         t1 = time.perf_counter()
         ref_report = run_vocoder_ref(tts)
@@ -2867,7 +3050,7 @@ def main() -> int:
                   "index_tts_dubbing_tpu/ops/pallas_snake.py:168"),
         summarize(checks["resblock_cmajor"], paths["beam"]["resblock_cmajor"],
                   "resblock_cmajor",
-                  "index_tts_dubbing_tpu_torch/csrc/resblock_cmajor.cu",
+                  "index_tts_dubbing_tpu_torch/csrc/resblock_cmajor.cuh",
                   "index_tts_dubbing_tpu/ops/pallas_resblock.py:175"),
         summarize(checks["snake_clast"], paths["vocoder-ref"]["snake_clast"],
                   "snake_clast",

@@ -43,10 +43,16 @@
 // a lane's row; a pass moves it on by additions. T % kRun != 0, or a pointer off 16 bytes, takes the scalar load
 // and store path (kVec false). A value past sin2's limit makes the lane
 // redo its pairs with the accurate sinf (one branch per pass).
+// Exact-edge mode (kExact, one flag a launch): a lane whose pairs reach a
+// row's end (the row's first lane, and the last lane that stores) replaces
+// the pairs past it as the exact route pads its x2 signal
+// (exact_edge.cuh), after every shuffle, so a lane's neighbours see its
+// pairs unchanged; the other lanes run as in the default mode.
 #include <climits>
 #include <cstdint>
 
 #include "dtype.cuh"
+#include "exact_edge.cuh"
 #include "snake_math.cuh"
 
 namespace {
@@ -126,7 +132,7 @@ __device__ __forceinline__ bool make_pairs(const float (&xv)[kRun + kHalo],
 
 // One pass. below: lane 0's 5 inputs before its run; on return, the next
 // pass's (lane 30's tail here). Every shuffle runs before any lane branches.
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kExact>
 __device__ __forceinline__ void run_pass(const Pass& s, float (&below)[kHalo],
                                          T* __restrict__ out, const Taps& tp,
                                          int lane, int T_len) {
@@ -150,6 +156,11 @@ __device__ __forceinline__ void run_pass(const Pass& s, float (&below)[kHalo],
     pe[kRun + j] = __shfl_down_sync(0xffffffffu, pe[j], 1);
     po[kRun + j] = __shfl_down_sync(0xffffffffu, po[j], 1);
   }
+  if constexpr (kExact) {   // pe/po[r] is pair u = tb - 2 + r
+    if (s.tb == 0 || s.tb + kRun + 2 >= T_len) {
+      exact_edge::clamp_pairs(pe, po, s.tb - 2, T_len);
+    }
+  }
   if (s.live && lane != kStride && s.tb < T_len) {
     float y[kRun];
 #pragma unroll
@@ -168,7 +179,7 @@ __device__ __forceinline__ void run_pass(const Pass& s, float (&below)[kHalo],
   }
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 snake_cmajor_kernel(const T* __restrict__ x, T* __restrict__ out,
                     const SnakeParams sp, const Taps taps, int rows, int C,
@@ -198,21 +209,22 @@ snake_cmajor_kernel(const T* __restrict__ x, T* __restrict__ out,
       advance(q, lanes_per_row, C);
       next = load_pass<T, kVec>(x, sp, q, rows, T_len);
     }
-    run_pass<T, kVec>(cur, below, out, taps, lane, T_len);
+    run_pass<T, kVec, kExact>(cur, below, out, taps, lane, T_len);
     cur = next;
   }
 }
 
+// the default mode's residency; the exact-edge mode's plan uses it too
 template <typename T, bool kVec>
 int resident(int* threads_per_sm) {
   int blocks = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, snake_cmajor_kernel<T, kVec>, kThreads, 0);
+      &blocks, snake_cmajor_kernel<T, kVec, false>, kThreads, 0);
   *threads_per_sm = blocks * kThreads;
   return static_cast<int>(err);
 }
 
-template <typename T>
+template <typename T, bool kExact>
 int launch(const void* x, void* out, const SnakeParams& sp,
            const Taps& taps, int rows, int C, int T_len, int vec,
            int lanes_per_row, int passes, int chunk, cudaStream_t s) {
@@ -230,11 +242,11 @@ int launch(const void* x, void* out, const SnakeParams& sp,
   const int warps = (passes + chunk - 1) / chunk;
   const int blocks = (warps + kWarps - 1) / kWarps;
   if (vec) {
-    snake_cmajor_kernel<T, true><<<blocks, kThreads, 0, s>>>(
+    snake_cmajor_kernel<T, true, kExact><<<blocks, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<T*>(out), sp, taps, rows, C,
         T_len, lanes_per_row, passes, chunk);
   } else {
-    snake_cmajor_kernel<T, false><<<blocks, kThreads, 0, s>>>(
+    snake_cmajor_kernel<T, false, kExact><<<blocks, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<T*>(out), sp, taps, rows, C,
         T_len, lanes_per_row, passes, chunk);
   }
@@ -262,13 +274,13 @@ extern "C" int snake_cmajor_resident(int dtype, int vec, void* threads_per_sm) {
 // be kRun; vec (1: the
 // 16-byte path, which needs T % kRun == 0 and 16-byte pointers),
 // lanes_per_row, passes and chunk (passes per warp) come from the wrapper's
-// plan (ops/snake_cmajor.py launch_plan).
+// plan (ops/snake_cmajor.py launch_plan); exact 1 is the exact-edge mode.
 extern "C" int snake_cmajor(const void* x, void* out, const void* alpha,
                             const void* beta, int param_dtype, int logscale,
                             const void* taps, int rows, int C, int T_len,
                             int run, int vec,
                             int lanes_per_row, int passes, int chunk,
-                            int dtype, void* stream) {
+                            int exact, int dtype, void* stream) {
   if (run != kRun) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (param_dtype != kFloat32 && param_dtype != kBFloat16) {
@@ -277,12 +289,13 @@ extern "C" int snake_cmajor(const void* x, void* out, const void* alpha,
   const SnakeParams sp{alpha, beta, param_dtype, logscale};
   const Taps tp = snake_math::make_taps(static_cast<const float*>(taps));
   if (dtype == kFloat32) {
-    return launch<float>(x, out, sp, tp, rows, C, T_len, vec,
-                         lanes_per_row, passes, chunk, s);
+    return (exact ? launch<float, true> : launch<float, false>)(
+        x, out, sp, tp, rows, C, T_len, vec, lanes_per_row, passes, chunk, s);
   }
   if (dtype == kBFloat16) {
-    return launch<__nv_bfloat16>(x, out, sp, tp, rows, C, T_len, vec,
-                                 lanes_per_row, passes, chunk, s);
+    return (exact ? launch<__nv_bfloat16, true>
+                  : launch<__nv_bfloat16, false>)(
+        x, out, sp, tp, rows, C, T_len, vec, lanes_per_row, passes, chunk, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,7 +24,8 @@ import torch
 
 from index_tts_dubbing_tpu_torch.config import GPTConfig
 from index_tts_dubbing_tpu_torch.engine import decode as decode_mod
-from index_tts_dubbing_tpu_torch.engine.vocoder import WindowedVocoder
+from index_tts_dubbing_tpu_torch.engine.vocoder import (WindowedVocoder,
+                                                       exact_span)
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
 from index_tts_dubbing_tpu_torch.utils import profiling
 
@@ -141,9 +142,10 @@ def vocode_fused(voc: WindowedVocoder, res: FusedLatResult,
     wav = wav.reshape(-1)
 
     if voc.edge_exact and voc._edge_approx():
-        # stream-boundary patches of 2·halo frames through the exact route;
+        # stream-boundary patches of 2·halo frames through the exact route
+        # (on the kernels' exact-edge mode where a kernel switch is on);
         # each keeps its boundary half (JAX fused.py:206-230)
-        with profiling.span("vocoder.exact", device=dev):
+        with exact_span(dev):
             pw = 2 * halo
             ar = torch.arange(pw, device=dev)
             lidx = flatmap[ar.clamp(max=p_total - 1)]

@@ -20,7 +20,12 @@ runs BigVGAN, and the halo-cropped outputs are stitched. Two layouts:
   re-vocoded by the exact route on two patches of 2·halo frames and
   written over the fast output (``_apply_edge_patches``), and a stream of
   at most one window vocodes by the exact route; without it the ends keep
-  the kernels' edge semantics.
+  the kernels' edge semantics. With a kernel switch on, that exact work
+  runs on the same kernels in their exact-edge mode, which pads every op
+  at the window's own two ends as the exact route does (the convs
+  zero-pad, the activations replicate-pad); the plain route (both
+  switches off, and every kernel's plain version on the CPU) runs the
+  exact route's own ops, as the reference does.
 - ``"ref"``: each window batch runs the reference-structured channels-last
   BigVGAN (models/bigvgan.py, ``_vocode_window``), whose activations take
   kernel B3 (ops/snake_clast.py) when ``cfg.use_pallas`` is set. The three
@@ -38,6 +43,7 @@ JAX package's type promotion does.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -50,6 +56,7 @@ from index_tts_dubbing_tpu_torch.config import BigVGANConfig
 from index_tts_dubbing_tpu_torch.models import bigvgan, ecapa
 from index_tts_dubbing_tpu_torch.ops.alias_free import (
     anti_aliased_activation_cmajor)
+from index_tts_dubbing_tpu_torch.ops import snake_cmajor as _k1
 from index_tts_dubbing_tpu_torch.ops.resblock_cmajor import (pack_resblock,
                                                              resblock_cmajor)
 from index_tts_dubbing_tpu_torch.utils import profiling
@@ -105,39 +112,80 @@ def _conv_transpose1d_cm(p: Dict[str, Any], x: torch.Tensor, *, stride: int,
 
 
 def _act_cm(cfg: BigVGANConfig, p: Dict[str, Any], x: torch.Tensor,
-            use_kernel: bool) -> torch.Tensor:
+            use_kernel: bool, exact_edge: bool = False) -> torch.Tensor:
     beta = p.get("beta") if cfg.activation == "snakebeta" else None
     return anti_aliased_activation_cmajor(x, p["alpha"], beta,
-                                          cfg.snake_logscale, use_kernel)
+                                          cfg.snake_logscale, use_kernel,
+                                          exact_edge)
+
+
+def _resblock_cm(cfg: BigVGANConfig, rb: Dict[str, Any], x: torch.Tensor,
+                 k: int, dils: Sequence[int], use_kernel: bool,
+                 exact_edge: bool = False) -> torch.Tensor:
+    """One resblock op by op: per pair act → conv (dilation d, zero pad) →
+    act → conv → residual, the activations on K1 with ``use_kernel``."""
+    y = x
+    for c1, c2, a1, a2, d in zip(rb["convs1"], rb["convs2"], rb["acts"][::2],
+                                 rb["acts"][1::2], dils):
+        yt = _act_cm(cfg, a1, y, use_kernel, exact_edge)
+        yt = _conv1d_cm(c1, yt, dilation=d, padding=(k * d - d) // 2)
+        yt = _act_cm(cfg, a2, yt, use_kernel, exact_edge)
+        yt = _conv1d_cm(c2, yt, padding=(k - 1) // 2)
+        y = yt + y
+    return y
 
 
 def pack_fused_resblocks(params: Dict[str, Any], cfg: BigVGANConfig,
-                         dtype) -> Dict[int, Tuple[torch.Tensor, ...]]:
+                         dtype, exact_edge: bool = False
+                         ) -> Dict[int, Tuple[torch.Tensor, ...]]:
     """K2's packed weights for every resblock of the C ≤ 128 stages, keyed by
-    flat resblock index."""
+    flat resblock index; ``exact_edge``: for K2's exact-edge mode."""
     packed = {}
     for i in range(cfg.num_upsamples):
         if cfg.stage_channels(i) > 128:
             continue
         for j in range(cfg.num_kernels):
             k = i * cfg.num_kernels + j
-            packed[k] = pack_resblock(params["resblocks"][k], cfg, dtype)
+            packed[k] = pack_resblock(params["resblocks"][k], cfg, dtype,
+                                      exact_edge)
     return packed
+
+
+# the K1 and K2 wrappers whose launch counters ``exact_span`` reads (held
+# here, since callers may wrap the names the vocoder calls)
+_COUNTED = (_k1.snake_cmajor, resblock_cmajor)
+
+
+@contextlib.contextmanager
+def exact_span(dev):
+    """The span ``vocoder.exact`` (the boundary work: edge patches, a short
+    stream vocoded whole) with its attribute ``kernel_launches``: the K1
+    and K2 launches inside it, all in exact-edge mode; 0 when the plain
+    route ran."""
+    with profiling.span("vocoder.exact", device=dev) as sp:
+        if not sp:
+            yield sp
+            return
+        n0 = sum(f.launches for f in _COUNTED)
+        yield sp
+        sp.set(kernel_launches=sum(f.launches for f in _COUNTED) - n0)
 
 
 def _vocode_window_cmajor(params: Dict[str, Any], cfg: BigVGANConfig,
                          latent: torch.Tensor, spk: Optional[torch.Tensor],
                          use_pallas: bool = True,
                          fuse_resblocks: bool = True,
-                         packed: Optional[Dict[int, Tuple]] = None
-                         ) -> torch.Tensor:
+                         packed: Optional[Dict[int, Tuple]] = None,
+                         exact_edge: bool = False) -> torch.Tensor:
     """Windows (B, W, gpt_dim) + speaker embedding ((1|B), 1, spk_dim), or
     None for the mel vocoder → wav (B, W·upsample), entirely in the (B, C,
     T) layout. ``fuse_resblocks``:
     K2 for each resblock of the C ≤ 128 stages; ``use_pallas``: K1 for
     every activation outside those (JAX ``vocoder.py:285-304``); both off
-    is the exact route. ``packed``: K2's weights from
-    ``pack_fused_resblocks`` for the compute dtype (None packs inline)."""
+    is the exact route. ``exact_edge``: the kernels in their exact-edge
+    mode, so the whole is the exact route's semantics on the kernels.
+    ``packed``: K2's weights from ``pack_fused_resblocks`` for the compute
+    dtype and the mode (None packs inline)."""
     x = _conv1d_cm(params["conv_pre"], latent.transpose(1, 2), padding=3)
     if spk is not None:
         if spk.shape[0] == 1 and latent.shape[0] > 1:
@@ -159,21 +207,13 @@ def _vocode_window_cmajor(params: Dict[str, Any], cfg: BigVGANConfig,
             dils = tuple(cfg.resblock_dilation_sizes[j])
             if fuse_resblocks and x.shape[1] <= 128:
                 w = (packed[idx] if packed is not None
-                     else pack_resblock(rb, cfg, x.dtype))
-                y = resblock_cmajor(x, *w, kk, dils)
+                     else pack_resblock(rb, cfg, x.dtype, exact_edge))
+                y = resblock_cmajor(x, *w, kk, dils, exact_edge=exact_edge)
             else:
-                y = x
-                for c1, c2, a1, a2, d in zip(rb["convs1"], rb["convs2"],
-                                             rb["acts"][::2], rb["acts"][1::2],
-                                             dils):
-                    yt = _act_cm(cfg, a1, y, use_pallas)
-                    yt = _conv1d_cm(c1, yt, dilation=d, padding=(kk * d - d) // 2)
-                    yt = _act_cm(cfg, a2, yt, use_pallas)
-                    yt = _conv1d_cm(c2, yt, padding=(kk - 1) // 2)
-                    y = yt + y
+                y = _resblock_cm(cfg, rb, x, kk, dils, use_pallas, exact_edge)
             xs = y if xs is None else xs + y
         x = xs / cfg.num_kernels
-    x = _act_cm(cfg, params["act_post"], x, use_pallas)
+    x = _act_cm(cfg, params["act_post"], x, use_pallas, exact_edge)
     x = _conv1d_cm(params["conv_post"], x, padding=3)
     return bigvgan.final(cfg, x)[:, 0, :]
 
@@ -334,34 +374,32 @@ class WindowedVocoder:
                                else fuse_resblocks)
         self.edge_exact = (self.use_pallas or self.fuse_resblocks
                            if edge_exact is None else edge_exact)
-        self._packed: Dict[torch.dtype, Dict[int, Tuple]] = {}
+        self._packed: Dict[Tuple[torch.dtype, bool], Dict[int, Tuple]] = {}
 
     def speaker_embedding(self, mel_ref: torch.Tensor) -> torch.Tensor:
         return speaker_embedding(self.params, mel_ref)
 
     def _vocode(self, windows: torch.Tensor, spk: torch.Tensor,
                 exact: bool) -> torch.Tensor:
-        """One window batch on the layout's window function; on "cmajor"
-        ``exact`` forces the exact route, else the switches pick the
-        kernels (JAX ``_vocode_fn``)."""
+        """One window batch on the layout's window function (JAX
+        ``_vocode_fn``). On "cmajor" the switches pick the kernels, and
+        ``exact`` asks for the exact route's semantics: the switches'
+        kernels in their exact-edge mode, which is the exact route's own
+        ops where no kernel runs (both switches off, or a CPU tensor)."""
         if self.layout == "ref":
             return _vocode_window(self.params, self.cfg, windows, spk)
-        if exact:
-            return _vocode_window_cmajor(self.params, self.cfg, windows, spk,
-                                        use_pallas=False,
-                                        fuse_resblocks=False)
         packed = None
         if self.fuse_resblocks:
             dt = (windows.dtype if spk is None
                   else torch.promote_types(windows.dtype, spk.dtype))
-            if dt not in self._packed:
-                self._packed[dt] = pack_fused_resblocks(self.params,
-                                                        self.cfg, dt)
-            packed = self._packed[dt]
+            if (dt, exact) not in self._packed:
+                self._packed[dt, exact] = pack_fused_resblocks(
+                    self.params, self.cfg, dt, exact_edge=exact)
+            packed = self._packed[dt, exact]
         return _vocode_window_cmajor(self.params, self.cfg, windows, spk,
                                     use_pallas=self.use_pallas,
                                     fuse_resblocks=self.fuse_resblocks,
-                                    packed=packed)
+                                    packed=packed, exact_edge=exact)
 
     def _edge_approx(self) -> bool:
         """True when the windows' route departs from the exact one at a
@@ -369,6 +407,12 @@ class WindowedVocoder:
         zero-pads each conv): the case the edge patches correct."""
         return self.layout == "cmajor" and (self.use_pallas
                                             or self.fuse_resblocks)
+
+    def _whole_span(self, dev):
+        """The span of a stream vocoded whole at its own length: the exact
+        route's with ``edge_exact``, else the plan's."""
+        return (exact_span(dev) if self.edge_exact
+                else profiling.span("vocoder.plan", device=dev))
 
     # -- window plan ---------------------------------------------------
     def _window_list(self, t: int) -> List[Tuple[int, int, int]]:
@@ -419,7 +463,7 @@ class WindowedVocoder:
         pw = 2 * self.halo
         hu = self.halo * self.upsample
         dev = outs[ends[0][0]].device
-        with profiling.span("vocoder.exact", device=dev):
+        with exact_span(dev):
             patches = torch.stack([fetch(r, 0, pw) for r, _ in ends]
                                   + [fetch(r, t - pw, pw) for r, t in ends])
             ewav = self._vocode(patches, None if spk is None else spk[:1],
@@ -466,8 +510,7 @@ class WindowedVocoder:
                 lambda r, lo, pw: flat[r * mb + lo: r * mb + lo + pw], None)
         for n in sorted({n for n in lens if 0 < n <= full}):
             same = [r for r, m in enumerate(lens) if m == n]
-            route = "vocoder.exact" if self.edge_exact else "vocoder.plan"
-            with profiling.span(route, device=dev):
+            with self._whole_span(dev):
                 x = torch.stack([flat[r * mb: r * mb + n] for r in same])
                 wavs = self._vocode(x, None, exact=self.edge_exact).float()
             for wv, r in zip(wavs, same):
@@ -518,8 +561,7 @@ class WindowedVocoder:
             flatmap = torch.as_tensor(rows * mb + cols, device=dev)
         full = self.window + 2 * self.halo
         if t <= full:
-            route = "vocoder.exact" if self.edge_exact else "vocoder.plan"
-            with profiling.span(route, device=dev):
+            with self._whole_span(dev):
                 stream = flat[flatmap][None]
                 wav = self._vocode(stream, spk[:1], exact=self.edge_exact)[0]
             with profiling.sync("wav"):

@@ -8,9 +8,13 @@ serve the C-major ``(B, C, T)`` vocoder directly; per-channel α/β broadcast
 over dim 1.
 
 ``anti_aliased_activation_cmajor(..., use_kernel=False)`` is the exact
-zero-pad-conv route the vocoder's edge patches take, on the card too.
-With ``use_kernel=True`` it runs kernel K1 (ops/snake_cmajor.py), whose
-edge semantics differ within ±3 frames of the true sequence boundary.
+route's activation: each call replicate-pads its own input for the ×2
+upsampler and its ×2 snake signal for the downsampler. It is the CPU's and
+the reference's route. With ``use_kernel=True`` it runs kernel K1
+(ops/snake_cmajor.py); by default K1 recomputes the up-phases over the
+replicated input, which differs within ±3 frames of the tensor's ends, and
+with ``exact_edge`` K1 pads as this route does: the exact route's semantics
+on the card.
 
 ``anti_aliased_activation`` is the channels-last ``(B, T, C)`` form the
 reference-structured BigVGAN (models/bigvgan.py) uses: the same ops on a
@@ -113,18 +117,26 @@ def snake_beta(x: torch.Tensor, alpha: torch.Tensor,
         beta = torch.exp(beta) if beta is not None else None
     a = alpha.float()[:, None]
     bta = beta.float()[:, None] if beta is not None else a
+    return snake_folded(x, a, 1.0 / (bta + 1e-9))
+
+
+def snake_folded(x: torch.Tensor, a: torch.Tensor,
+                 binv: torch.Tensor) -> torch.Tensor:
+    """x + binv·sin²(a·x) in float32 with the folded float32 parameters a
+    and binv = 1/(β + 1e-9), each (C, 1) over dim 1; out in x's dtype."""
     xf = x.float()
-    y = xf + (1.0 / (bta + 1e-9)) * torch.sin(xf * a).square()
-    return y.to(x.dtype)
+    return (xf + binv * torch.sin(xf * a).square()).to(x.dtype)
 
 
 def anti_aliased_activation_cmajor(x: torch.Tensor, alpha: torch.Tensor,
                                    beta: Optional[torch.Tensor], logscale: bool,
-                                   use_kernel: bool = True) -> torch.Tensor:
-    """(B, C, T) → (B, C, T): up → snake(beta) → down along time."""
+                                   use_kernel: bool = True,
+                                   exact_edge: bool = False) -> torch.Tensor:
+    """(B, C, T) → (B, C, T): up → snake(beta) → down along time.
+    ``use_kernel``: K1, in its exact-edge mode with ``exact_edge``."""
     if use_kernel:
         from index_tts_dubbing_tpu_torch.ops.snake_cmajor import snake_cmajor
-        return snake_cmajor(x, alpha, beta, logscale)
+        return snake_cmajor(x, alpha, beta, logscale, exact_edge=exact_edge)
     return downsample2(snake_beta(upsample2(x), alpha, beta, logscale))
 
 

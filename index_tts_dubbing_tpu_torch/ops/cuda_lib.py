@@ -38,8 +38,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: argument types, in order (each returns cudaGetLastError()).
 SIGNATURES = {
     # x, out, alpha, beta, param dtype, logscale, host taps, rows, C, T,
-    # run, vec, lanes, passes, chunk, dtype, stream
-    "snake_cmajor": [_P, _P, _P, _P, _I, _I, _P] + [_I] * 9 + [_P],
+    # run, vec, lanes, passes, chunk, exact edge, dtype, stream
+    "snake_cmajor": [_P, _P, _P, _P, _I, _I, _P] + [_I] * 10 + [_P],
     # x, out, alpha, beta, param dtype, logscale, host taps, B, T, C, vec,
     # run, runs, threads, dtype, stream
     "snake_clast": [_P, _P, _P, _P, _I, _I, _P] + [_I] * 8 + [_P],
@@ -47,8 +47,8 @@ SIGNATURES = {
     "snake_cmajor_resident": [_I, _I, _P],
     "snake_clast_resident": [_I, _I, _P],
     # x, out, w1, b1, w2, b2, acts, filt, scratch, B, C, Cp, T, k, d0, d1,
-    # d2, tt, cpad, dtype, stream
-    "resblock_cmajor": [_P] * 9 + [_I] * 11 + [_P],
+    # d2, tt, cpad, exact edge, dtype, stream
+    "resblock_cmajor": [_P] * 9 + [_I] * 12 + [_P],
     # k, v, cp, L, BN, H, slab_elems, copy_elems, esize, stream
     "copy_on_fork": [_P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
     # k_in, v_in, k_out, v_out, src, L, BN, H, slab_elems, live_elems, esize,

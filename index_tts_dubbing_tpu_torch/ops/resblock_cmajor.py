@@ -5,11 +5,13 @@ Replaces the Pallas kernel ``fused_resblock_cmajor``
 → conv k, dilation d → anti-aliased snake → conv k → residual add] over a
 tile whose conv inputs and outputs stay in shared memory and registers; only
 the float32 residual stream goes to a per-block scratch, which stays in L2.
-The CUDA source is ``csrc/resblock_cmajor.cu``: convs on the tensor cores
-(float32 as three TF32 passes, ``tf32_split``), built for the padded widths
-``KERNEL_WIDTHS``: a call at C ≤ 128 runs on the smallest of them ≥ C
-(``kernel_width``), with the weights packed at that width with zeros; the
-kernel reads and writes only x's C rows, and the pad channels stay 0.
+The CUDA source is ``csrc/resblock_cmajor.cuh`` (built from
+``resblock_cmajor.cu`` and ``resblock_cmajor_exact.cu``): convs on the
+tensor cores (float32 as three TF32 passes, ``tf32_split``), built for the
+padded widths ``KERNEL_WIDTHS``: a call at C ≤ 128 runs on the smallest of
+them ≥ C (``kernel_width``), with the weights packed at that width with
+zeros; the kernel reads and writes only x's C rows, and the pad channels
+stay 0.
 
 Numerics, as the Pallas kernel's: activations in float32; each conv rounds
 its input to the caller's dtype and accumulates in float32 with a float32
@@ -18,8 +20,15 @@ bias; the residual chain stays float32 until the output cast.
 Edge semantics: the input is replicate-padded at the true boundaries by the
 chain span (``chain_shrink`` ≤ 96 frames) and every op then runs in valid
 mode, so the result does not depend on the tile; within the span of a true
-boundary it differs from the exact per-op zero-pad route, which the
-vocoder's edge patches restore.
+boundary it differs from the exact per-op route. The exact-edge mode
+(``exact_edge=True``, one flag a launch, with weights packed by
+``pack_resblock(..., exact_edge=True)``) is the exact route's semantics
+over the whole tensor: each conv zero-pads and each anti-aliased
+activation replicate-pads its input and its ×2 snake signal at x's own two
+ends. Its plain version is the exact route's own ops (the vocoder's plain
+resblock), the CPU's and the reference's route; the kernel differs from it
+only in rounding (float32 activations, the conv inputs rounded to x's
+dtype).
 
 ``resblock_cmajor`` launches the kernel for a CUDA tensor and takes the
 plain version ``resblock_cmajor_plain`` only for a CPU tensor.
@@ -32,14 +41,15 @@ import torch
 import torch.nn.functional as F
 
 from index_tts_dubbing_tpu_torch.ops import cuda_lib
-from index_tts_dubbing_tpu_torch.ops.alias_free import (DOWN_FILTER, UP_FILTER,
-                                                        replicate_pad)
+from index_tts_dubbing_tpu_torch.ops.alias_free import (
+    DOWN_FILTER, UP_FILTER, downsample2, replicate_pad, snake_folded,
+    upsample2)
 
 _SMEM_LIMIT = 232448      # dynamic shared memory a block may use on sm_90
 _MAX_TILE = 768
 _STAGES = 3               # depth of the kernel's weight ring
 # the widths K2 is built for (Cp % 8 == 0 and Cp % its weight-stage rows == 0
-# in csrc/resblock_cmajor.cu's Plan); 24, 48, 96 are the C ≤ 128 stages of
+# in csrc/resblock_cmajor.cuh's Plan); 24, 48, 96 are the C ≤ 128 stages of
 # the 1536-channel BigVGAN, which run unpadded
 KERNEL_WIDTHS = (8, 16, 24, 32, 48, 64, 96, 128)
 
@@ -71,14 +81,16 @@ def _cpad(c: int) -> int:
     return -(-c // 32) * 32
 
 
-def pack_resblock(rb: Dict[str, Any], cfg, dtype
+def pack_resblock(rb: Dict[str, Any], cfg, dtype, exact_edge: bool = False
                   ) -> Tuple[torch.Tensor, ...]:
     """One resblock's params in the kernel's layout at Cp =
     ``kernel_width(C)``: w1/w2 (3, k·Cpad, Cp) in ``dtype`` (Cpad =
     ``_cpad(Cp)`` rows per tap), b1/b2 (3, Cp, 1) float32, acts (3, 4, Cp, 1)
     float32 rows [alpha1, 1/beta1, alpha2, 1/beta2] with the log-scale
-    folded. Rows and columns C..Cp-1 are zero, and the pad rows of acts 1,
-    so the pad channels stay 0."""
+    folded: in float32 (as the Pallas kernel folds it), or with
+    ``exact_edge`` in the parameters' own dtype, as the exact route's
+    ``snake_beta`` folds it. Rows and columns C..Cp-1 are zero, and the pad
+    rows of acts 1, so the pad channels stay 0."""
     c = rb["convs1"][0]["b"].shape[0]
     cp = kernel_width(c)
 
@@ -94,18 +106,18 @@ def pack_resblock(rb: Dict[str, Any], cfg, dtype
     w1 = torch.stack([flat(p["w"]) for p in rb["convs1"]]).to(dtype)
     w2 = torch.stack([flat(p["w"]) for p in rb["convs2"]]).to(dtype)
     b1, b2 = bias(rb["convs1"]), bias(rb["convs2"])
-    rows = []
-    for a1, a2 in zip(rb["acts"][::2], rb["acts"][1::2]):
-        al1, al2 = a1["alpha"].float(), a2["alpha"].float()
-        if cfg.activation == "snakebeta":
-            be1, be2 = a1["beta"].float(), a2["beta"].float()
-        else:
-            be1, be2 = al1, al2
+
+    def fold(act):
+        al = act["alpha"]
+        be = act["beta"] if cfg.activation == "snakebeta" else al
+        if not exact_edge:
+            al, be = al.float(), be.float()
         if cfg.snake_logscale:
-            al1, be1 = torch.exp(al1), torch.exp(be1)
-            al2, be2 = torch.exp(al2), torch.exp(be2)
-        rows.append(torch.stack([al1, 1.0 / (be1 + 1e-9),
-                                 al2, 1.0 / (be2 + 1e-9)]))
+            al, be = torch.exp(al), torch.exp(be)
+        return [al.float(), 1.0 / (be.float() + 1e-9)]
+
+    rows = [torch.stack(fold(a1) + fold(a2))
+            for a1, a2 in zip(rb["acts"][::2], rb["acts"][1::2])]
     acts = F.pad(torch.stack(rows), (0, cp - c), value=1.0)
     return w1, b1, w2, b2, acts[..., None].contiguous()
 
@@ -148,12 +160,44 @@ def _conv_shrink(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
     return F.conv1d(v.to(in_dtype).float(), wt, dilation=d) + b
 
 
+def _resblock_exact(x: torch.Tensor, w1, b1, w2, b2, acts, k: int,
+                    dils: Sequence[int]) -> torch.Tensor:
+    """The exact route's resblock on K2's packed weights, in x's dtype:
+    per pair act → conv (dilation d, zero pad) → act → conv → residual,
+    each activation ``downsample2(snake(upsample2(·)))``, as the vocoder's
+    plain route runs it from the unpacked parameters (bit for bit with
+    acts packed by ``pack_resblock(..., exact_edge=True)``)."""
+    c, cp = x.shape[1], w1.shape[-1]
+
+    def conv(w, b, v, d):
+        wt = w.reshape(k, _cpad(cp), cp)[:, :c, :c].contiguous()
+        out = F.conv1d(v, wt.permute(2, 1, 0), padding=(k * d - d) // 2,
+                       dilation=d)
+        return out + b[:c, 0].to(v.dtype)[:, None]
+
+    def act(v, a, binv):
+        return downsample2(snake_folded(upsample2(v), a[:c], binv[:c]))
+
+    y = x
+    for p, d in enumerate(dils):
+        yt = act(y, acts[p, 0], acts[p, 1])
+        yt = conv(w1[p], b1[p], yt, d)
+        yt = act(yt, acts[p, 2], acts[p, 3])
+        yt = conv(w2[p], b2[p], yt, 1)
+        y = yt + y
+    return y
+
+
 def resblock_cmajor_plain(x: torch.Tensor, w1, b1, w2, b2, acts, k: int,
-                          dils: Sequence[int]) -> torch.Tensor:
+                          dils: Sequence[int], exact_edge: bool = False
+                          ) -> torch.Tensor:
     """What the kernel computes, edges included, in plain torch ops:
     replicate-pad by the chain span, then every op in valid mode. Weights
     packed at a width Cp above x's C (``pack_resblock``) run on x with zero
-    channels added, as the kernel does; the result is cut back to C."""
+    channels added, as the kernel does; the result is cut back to C. With
+    ``exact_edge``: the exact route's resblock (``_resblock_exact``)."""
+    if exact_edge:
+        return _resblock_exact(x, w1, b1, w2, b2, acts, k, dils)
     c, cp = x.shape[1], w1.shape[-1]
     xp = F.pad(x, (0, 0, 0, cp - c)) if cp > c else x
     y = replicate_pad(xp, chain_shrink(k, dils), chain_shrink(k, dils)).float()
@@ -168,7 +212,7 @@ def resblock_cmajor_plain(x: torch.Tensor, w1, b1, w2, b2, acts, k: int,
 
 
 def _gemm_plan(c: int) -> Tuple[int, int, int]:
-    """K2's GEMM plan at C channels, as in ``csrc/resblock_cmajor.cu``'s
+    """K2's GEMM plan at C channels, as in ``csrc/resblock_cmajor.cuh``'s
     ``Plan``: (padded output rows, Cin rows per weight stage, slab row
     stride)."""
     cm = -(-c // 16) * 16
@@ -220,12 +264,14 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def resblock_cmajor(x: torch.Tensor, w1, b1, w2, b2, acts, k: int,
-                    dils: Sequence[int]) -> torch.Tensor:
+                    dils: Sequence[int], exact_edge: bool = False
+                    ) -> torch.Tensor:
     """One AMP resblock (B, C, T) → (B, C, T), C ≤ 128, with weights from
     ``pack_resblock``: kernel K2 on a CUDA tensor, the plain version on a
-    CPU tensor."""
+    CPU tensor; ``exact_edge``: the exact-edge mode."""
     if x.device.type == "cpu":
-        return resblock_cmajor_plain(x, w1, b1, w2, b2, acts, k, dils)
+        return resblock_cmajor_plain(x, w1, b1, w2, b2, acts, k, dils,
+                                     exact_edge)
     if x.device.type != "cuda":
         raise ValueError(f"resblock_cmajor: unsupported device {x.device}")
     if x.dim() != 3 or len(dils) != 3:
@@ -254,7 +300,7 @@ def resblock_cmajor(x: torch.Tensor, w1, b1, w2, b2, acts, k: int,
         x.data_ptr(), out.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), acts.data_ptr(),
         cuda_lib.filter_taps(dev).data_ptr(), scratch.data_ptr(), b, c, cw, t,
-        k, *dils, tt, cpad, code, cuda_lib.stream_ptr(dev))
+        k, *dils, tt, cpad, int(exact_edge), code, cuda_lib.stream_ptr(dev))
     cuda_lib.check(rc, "resblock_cmajor")
     resblock_cmajor.launches += 1
     return out

@@ -9,7 +9,11 @@ the input dtype. The CUDA source is ``csrc/snake_cmajor.cu``.
 Edge semantics (as the Pallas kernel's): the up-phases near a true sequence
 boundary are recomputed over the replicated input rather than replicating
 the upsampled edge, so outputs within ±3 frames of a boundary differ from
-the exact route (ops/alias_free.py); the interior equals it.
+the exact route (ops/alias_free.py); the interior equals it. In the
+exact-edge mode (``exact_edge=True``, one flag a launch) the ×2 snake
+signal is replicate-padded at each row's two ends instead, which is the
+exact route's semantics over the whole tensor; the plain version of that
+mode is the exact route's own ops, the CPU's and the reference's route.
 
 ``snake_cmajor`` launches the kernel for a CUDA tensor and takes the plain
 version ``snake_cmajor_plain`` only for a CPU tensor. ``lane_plan`` is the
@@ -24,8 +28,8 @@ from typing import Optional, Tuple
 import torch
 
 from index_tts_dubbing_tpu_torch.ops import cuda_lib
-from index_tts_dubbing_tpu_torch.ops.alias_free import (DOWN_FILTER, UP_FILTER,
-                                                        replicate_pad)
+from index_tts_dubbing_tpu_torch.ops.alias_free import (
+    DOWN_FILTER, UP_FILTER, anti_aliased_activation_cmajor, replicate_pad)
 
 _PAD = 6  # input frames each output depends on, each side
 RUN = 8   # outputs per lane (kRun in csrc/snake_cmajor.cu): two 16-byte loads
@@ -87,11 +91,15 @@ def raw_params(alpha: torch.Tensor, beta: Optional[torch.Tensor],
 
 
 def snake_cmajor_plain(x: torch.Tensor, alpha: torch.Tensor,
-                       beta: Optional[torch.Tensor],
-                       logscale: bool) -> torch.Tensor:
+                       beta: Optional[torch.Tensor], logscale: bool,
+                       exact_edge: bool = False) -> torch.Tensor:
     """The plain PyTorch version of K1: what the kernel computes, edges
     included — replicate-pad by 6, up-phases → snake → decimation in valid
-    mode."""
+    mode. With ``exact_edge``: the exact route's activation
+    (ops/alias_free.py), bit for bit."""
+    if exact_edge:
+        return anti_aliased_activation_cmajor(x, alpha, beta, logscale,
+                                              use_kernel=False)
     a, binv = fold_params(alpha, beta, logscale, x.shape[1])
     t = x.shape[-1]
     n = t + 6                          # up-phase samples u ∈ [-3, t+3)
@@ -118,11 +126,12 @@ def snake_cmajor_plain(x: torch.Tensor, alpha: torch.Tensor,
 
 
 def snake_cmajor(x: torch.Tensor, alpha: torch.Tensor,
-                 beta: Optional[torch.Tensor], logscale: bool) -> torch.Tensor:
+                 beta: Optional[torch.Tensor], logscale: bool,
+                 exact_edge: bool = False) -> torch.Tensor:
     """(B, C, T) → (B, C, T): kernel K1 on a CUDA tensor, the plain version
-    on a CPU tensor."""
+    on a CPU tensor; ``exact_edge``: the exact-edge mode."""
     if x.device.type == "cpu":
-        return snake_cmajor_plain(x, alpha, beta, logscale)
+        return snake_cmajor_plain(x, alpha, beta, logscale, exact_edge)
     if x.device.type != "cuda":
         raise ValueError(f"snake_cmajor: unsupported device {x.device}")
     if x.dim() != 3:
@@ -137,7 +146,7 @@ def snake_cmajor(x: torch.Tensor, alpha: torch.Tensor,
         x.data_ptr(), out.data_ptr(), al.data_ptr(),
         None if be is None else be.data_ptr(), pcode, int(logscale),
         cuda_lib.host_taps(), b * c, c, t, RUN, vec, lanes, passes, chunk,
-        code, cuda_lib.stream_ptr(x.device))
+        int(exact_edge), code, cuda_lib.stream_ptr(x.device))
     cuda_lib.check(rc, "snake_cmajor")
     snake_cmajor.launches += 1
     return out

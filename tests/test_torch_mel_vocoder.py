@@ -158,7 +158,10 @@ def _conv1d_cm_before(p, x, *, dilation=1, padding=0):
 
 
 def _vocode_window_cmajor_before(params, cfg, latent, spk, use_pallas=True,
-                                 fuse_resblocks=True, packed=None):
+                                 fuse_resblocks=True, packed=None,
+                                 exact_edge=False):
+    if exact_edge:       # the exact route, as ``_vocode(exact=True)`` took it
+        use_pallas = fuse_resblocks = False
     if spk.shape[0] == 1 and latent.shape[0] > 1:
         spk = spk.expand((latent.shape[0],) + spk.shape[1:])
     spk_cm = spk.transpose(1, 2)

@@ -10,7 +10,9 @@ CPU, torch and numpy only:
 - the launch plans (``snake_cmajor.lane_plan``, ``snake_clast.run_plan``):
   the lanes and runs stitched cover every row, time and channel exactly
   once, and a float32 emulation of each kernel's walk over its plan (K1's
-  lanes with their shuffles, B3's register rings) equals the plain version.
+  lanes with their shuffles, B3's register rings) equals the plain version;
+  K1's walk in its exact-edge mode (csrc/exact_edge.cuh's pair clamp in the
+  lanes that reach a row's end) equals the exact route.
 """
 import math
 from unittest import mock
@@ -198,10 +200,22 @@ def _snake(v, av, bv):
     return v + bv * sin2(v * av)
 
 
-def emulate_k1(x, a, binv, resident):
+def clamp_pairs(pe, po, g, t):
+    """csrc/exact_edge.cuh's ``clamp_pairs`` over the last axis: pairs
+    u = g + j (g broadcast over the leading axes), the ×2 signal
+    replicate-padded at [0, t)'s ends."""
+    u = np.asarray(g)[..., None] + np.arange(pe.shape[-1])
+    e0 = np.where(u == 0, pe, 0).sum(-1, keepdims=True)
+    o_t = np.where(u == t, po, 0).sum(-1, keepdims=True)
+    pe, po = np.where(u < 0, e0, pe), np.where(u <= 0, e0, po)
+    return np.where(u >= t, o_t, pe), np.where(u > t, o_t, po)
+
+
+def emulate_k1(x, a, binv, resident, exact=False):
     """K1's kernel in numpy float32 over (rows, T) = x, lane by lane (a
     pass's lanes along axis 1, shuffles as rolls along it), its warps
-    walking chunks of passes from lane_plan."""
+    walking chunks of passes from lane_plan; ``exact``: its exact-edge
+    mode."""
     rows, t = x.shape
     c = a.shape[0]
     up_e, up_o, dn_e, dn_o = _taps()
@@ -228,6 +242,10 @@ def emulate_k1(x, a, binv, resident):
     po = np.concatenate([_snake(o, av, bv), np.zeros_like(o[..., :halo])], -1)
     pe[..., run:] = np.roll(pe[..., :halo], -1, axis=1)         # shfl_down 1
     po[..., run:] = np.roll(po[..., :halo], -1, axis=1)
+    if exact:                  # pair r is u = tb - 2 + r
+        ends = ((tb == 0) | (tb + run + 2 >= t))[..., None]
+        ce, co = clamp_pairs(pe, po, tb - 2, t)
+        pe, po = np.where(ends, ce, pe), np.where(ends, co, po)
     y = sum(dn_o[q] * po[..., q: q + run] + dn_e[q] * pe[..., q: q + run]
             for q in range(6))
     out = np.full((rows, t), np.nan, f32)
@@ -250,6 +268,31 @@ def test_k1_emulation_matches_plain(rng, b, c, t, resident):
     ref = ref.numpy().reshape(b * c, t)
     assert np.isfinite(got).all()
     assert np.abs(got - ref).max() <= F32_TOL * max(1.0, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("resident", [2, 1 << 30])
+@pytest.mark.parametrize("b,c,t", [(2, 3, 577), (1, 4, 5), (3, 2, 1),
+                                   (2, 2, 2), (1, 2, 63), (1, 2, 576),
+                                   (2, 3, 11)])
+def test_k1_exact_emulation_matches_exact_route(rng, b, c, t, resident):
+    """K1's exact-edge mode against the exact route's activation, rows of
+    every length class (shorter than a run, one lane and a helper, ragged
+    and whole last runs); the default mode differs within ±3 frames."""
+    x = rng.standard_normal((b, c, t)).astype(f32)
+    alpha, beta = _params(rng, c)
+    a, binv = k1.fold_params(alpha, beta, True, c)
+    got = emulate_k1(x.reshape(b * c, t), a.numpy(), binv.numpy(), resident,
+                     exact=True)
+    ref = k1.snake_cmajor_plain(torch.from_numpy(x), alpha, beta, True,
+                                exact_edge=True)
+    ref = ref.numpy().reshape(b * c, t)
+    assert np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= F32_TOL * max(1.0, np.abs(ref).max())
+    default = emulate_k1(x.reshape(b * c, t), a.numpy(), binv.numpy(),
+                         resident)
+    inner = slice(3, t - 3)
+    assert np.abs(default[:, inner] - got[:, inner]).max(initial=0) <= \
+        F32_TOL * max(1.0, np.abs(ref).max())
 
 
 # --- B3: the run plan and a float32 emulation of the kernel's walk ----------

@@ -6,8 +6,9 @@
 The port's ``WindowedVocoder`` and JAX's ``WindowedVocoder(layout="cmajor")``
 run with the same switches on the same weights and inputs in float32, JAX's
 Pallas kernels in interpret mode. On the CPU the port's wrappers take K1's
-and K2's plain versions, which carry the kernels' edge semantics, so the
-whole wav is compared, ends included. The routes each setting takes are
+and K2's plain versions, which carry the kernels' edge semantics (and, in
+the exact-edge mode the exact work asks for, are the exact route's own
+ops), so the whole wav is compared, ends included. The routes each setting takes are
 counted at full width on meta tensors, and the engine serves a switched
 vocoder on every route of ``infer_fast``.
 """
@@ -134,10 +135,11 @@ def test_switches_match_jax(cut, monkeypatch, use_pallas, fuse_resblocks,
     patched = edge_exact and kernels
     assert pv.edge_exact == edge_exact and pv._edge_approx() == kernels
     # two streams of four one-window batches, each with two patches when
-    # patched, then the short stream as one batch, exact with edge_exact
+    # patched, then the short stream as one batch, exact with edge_exact;
+    # the exact batches run on the kernels too, in their exact-edge mode
     per_stream = [(1, False)] * 4 + [(2, True)] * patched
     assert count.batches == per_stream * 2 + [(1, edge_exact)]
-    kernel_batches = 8 + (not edge_exact)
+    kernel_batches = len(count.batches)
     assert count.k1 == K1_CUT.get((use_pallas, fuse_resblocks), 0) * \
         kernel_batches
     assert count.k2 == K2_CUT.get((use_pallas, fuse_resblocks), 0) * \
@@ -158,11 +160,11 @@ def test_routes_per_window_batch(monkeypatch, use_pallas, fuse_resblocks):
     p = weights.init_bigvgan(weights.Init(None, "meta"), cfg)
     n = {"k1": 0, "k2": 0}
 
-    def k1(x, *a):
+    def k1(x, *a, **kw):
         n["k1"] += 1
         return torch.empty_like(x)
 
-    def k2(x, *a):
+    def k2(x, *a, **kw):
         n["k2"] += 1
         return torch.empty_like(x)
 
@@ -198,7 +200,8 @@ def test_engine_with_switched_vocoder_matches_jax(engines, monkeypatch, text,
     the one-program flavour (three sentences, 60 frames) and on the staged
     route (one 125-token sentence, 60 frames), greedy: the same codes, the
     int16 wav within 2 LSB, and the port's K1 run on every activation of
-    each window batch (109 at the small config's six stages), K2 never."""
+    each vocoder batch, the exact ones included (109 at the small config's
+    six stages), K2 never."""
     jeng, peng, prompt = engines
     sw = dict(window=WINDOW, halo=HALO, use_pallas=True, fuse_resblocks=False)
     jeng.vocoder = jvocoder.WindowedVocoder(
@@ -220,7 +223,7 @@ def test_engine_with_switched_vocoder_matches_jax(engines, monkeypatch, text,
     np.testing.assert_array_equal(pcodes[0], jcodes[0])
     assert pwav.shape == (60 * 1024, 1)
     assert_i16_close(pwav, jwav)
-    kernel_batches = [n for n, exact in count.batches if not exact]
-    assert kernel_batches and count.k2 == 0
-    assert count.k1 == 109 * len(kernel_batches)
+    # every batch, the exact ones too (K1's exact-edge mode)
+    assert [n for n, exact in count.batches if not exact] and count.k2 == 0
+    assert count.k1 == 109 * len(count.batches)
     assert (2, True) in count.batches           # the edge patches

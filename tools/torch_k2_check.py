@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Kernel K2 (index_tts_dubbing_tpu_torch/csrc/resblock_cmajor.cu) alone on
-one card.
+"""Kernel K2 (index_tts_dubbing_tpu_torch/csrc/resblock_cmajor.cuh, built
+from resblock_cmajor.cu and resblock_cmajor_exact.cu) alone on one card.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -32,7 +32,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = "index_tts_dubbing_tpu_torch"
-CU = "csrc/resblock_cmajor.cu"
+CU = "csrc/resblock_cmajor.cuh"
 RAGGED = [(96, 1000, 11, 3), (48, 777, 7, 1), (24, 700, 3, 2), (96, 37, 3, 1)]
 # name -> [(file in the package, old text, new text)]
 VARIANTS = {
@@ -54,18 +54,21 @@ VARIANTS = {
 
 
 def ptxas_report() -> str:
-    """ptxas -v for resblock_cmajor.cu alone, compiled as the library is."""
+    """ptxas -v for K2's two sources (its default and exact-edge modes),
+    compiled as the library is."""
     from index_tts_dubbing_tpu_torch.ops import cuda_lib
-    src = cuda_lib.CSRC_DIR / "resblock_cmajor.cu"
-    cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-           "-o", "/dev/null", str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=cuda_lib.NVCC_TIMEOUT_S)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
-    return "\n".join(line for line in proc.stderr.splitlines()
-                     if "resblock" in line or "registers" in line
-                     or "spill" in line)
+    lines = []
+    for name in ("resblock_cmajor.cu", "resblock_cmajor_exact.cu"):
+        cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+               "-o", "/dev/null", str(cuda_lib.CSRC_DIR / name)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=cuda_lib.NVCC_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
+        lines += [line for line in proc.stderr.splitlines()
+                  if "resblock" in line or "registers" in line
+                  or "spill" in line]
+    return "\n".join(lines)
 
 
 def inputs(gen, c, t, k, b, dt):
