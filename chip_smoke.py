@@ -33,19 +33,14 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
              and bfloat16, 2 windows of 4700 samples, timed in float32
              beside its plain version; C = 129 must raise.
 4. main    - full-width EngineConfig(), bf16 random weights from seed 0, a
-             3 s numpy prompt. Three paths, each with every launch count set
+             3 s numpy prompt. Two paths, each with every launch count set
              to 0 just before it and read just after:
              sampling  - one IndexTTS.infer_fast(num_beams=1) request;
              beam      - three infer_fast requests with the reference's
-                         defaults (num_beams=3, beam sampling, history
-                         strategy "anc"): warm-up, one sentence, and three
-                         sentences padded to a batch bucket with a dead row;
-             beam-cof  - the beam decode with reorder="cof" on the last
-                         request's prefix, which launches copy_on_fork once
-                         per step, beside "anc" on the same prefix and noise;
-                         then both once more in float32 (the weights cast to
-                         float32, the same seed) for 64 steps, the count of
-                         equal tokens printed, not asserted.
+                         defaults (num_beams=3, beam sampling):
+                         warm-up, one sentence, and three sentences padded
+                         to a batch bucket with a dead row; copy_on_fork
+                         never launches.
              Checks each output's length, finiteness and launches; then holds
              the windowed vocoder on the kernels against the exact route.
              vocoder-ref - WindowedVocoder(layout="ref") with use_pallas on
@@ -130,30 +125,11 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
                          time, idle share, ms a step, top-10 device ops.
 7. slice 9 - after slice 8, before the surfaces; each path with every launch
              count set to 0 just before it and read just after:
-             histories   - every beam history strategy (decode.BEAM_REORDERS,
-                         17) on the beam-cof phase's prefix at cap 64: float32
-                         beam search (the weights cast up), gen, flat,
-                         flatfull, mm and blocked asserted equal to "full",
-                         cof and cofdense to "split", the routed anc, ancfull,
-                         ancb, ancsw and ancg's agreement with "full" printed
-                         (ROADMAP C6), none, ancnone and splitnone checked
-                         for shape; then bf16 beam sampling with the
-                         reference's defaults at BN 12 and (twice, the
-                         second time in reverse order) at BN 3 on TEXTS[1],
-                         ms a step each. copy_on_fork
-                         launches once per step on cof and cofdense and
-                         nowhere else;
-             fused-window - fuse_bigvgan_params + _vocode_window_fused on one
-                         window of a sampling request's latents, the engine's
-                         vocoder weights cast to float32, beside
-                         _vocode_window, use_pallas off (within VOCODER_TOL)
-                         and on (B3 launched once, for act_post; within
-                         VOCODER_TOL EDGE_FRAMES from the ends, EDGE_TOL
-                         everywhere); ms a call of both;
              dvae-eval   - dvae at DVAEConfig() with random weights (card
                          codes equal the CPU's, the decoded mel within
                          DVAE_TOL), sinc_conv card vs CPU, speaker_similarity
-                         of the prompt and the fused window's wav, and
+                         of the prompt and a sampling request's wav
+                         (TEXTS[1] at cap 300), and
                          forward_latent against forward_latent_bucketed on one
                          sentence in float32.
 8. slice 10 - after slice 9, before the surfaces:
@@ -179,7 +155,7 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
                          max_memory_allocated; the small config's two steps
                          on the card within TRAIN_TOL of the CPU's;
              train-vocoder - the generator's and discriminators' totals with
-                         backward on 1.5 s of the fused window's wav:
+                         backward on 1.5 s of that sampling request's wav:
                          finite, ms each; the generator total within
                          LOSS_RTOL of the CPU's on 0.25 s.
 9. slice 11 - after slice 10, before the surfaces; the vocoder's switches
@@ -979,91 +955,6 @@ def run_request(tts: IndexTTS, prompt: str, text: str, n_rows: int,
             "gpt_gen_s": lt.gpt_gen, "bigvgan_s": lt.bigvgan,
             "gpt_gen_ms_per_step": 1e3 * lt.gpt_gen / lt.decode_steps,
             "launches": {k: v for k, v in grew.items() if v}}
-
-
-def check_beam_result(res, cfg, sc, live) -> None:
-    """A beam result is well formed: lengths in [0, cap], codes valid mel
-    codes, stop from each row's length on, dead rows empty."""
-    lens = res.lengths.cpu()
-    codes = res.codes.cpu()
-    cap = sc.max_mel_tokens
-    if codes.shape != (live.numel(), cap):
-        raise AssertionError(f"codes {tuple(codes.shape)}")
-    if not ((lens >= 0) & (lens <= cap)).all():
-        raise AssertionError(f"lengths {lens.tolist()} outside [0, {cap}]")
-    if not ((codes >= 0) & (codes < cfg.number_mel_codes)).all():
-        raise AssertionError("codes outside the mel vocabulary")
-    tail = torch.arange(cap)[None, :] >= lens[:, None]
-    if not (codes[tail] == cfg.stop_mel_token).all():
-        raise AssertionError("codes past a row's length are not stop")
-    if lens[~live.cpu()].any():
-        raise AssertionError(f"dead rows decoded: {lens.tolist()}")
-
-
-def run_beam_strategies(tts: IndexTTS, prompt: str, text: str) -> dict:
-    """The beam decode on ``text``'s padded batch (the last request's
-    prefix) with reorder "anc" and "cof" in turns (anc, cof, cof, anc),
-    every run from the same noise seed. Each runs with the launch counts set
-    to 0 just before it; cof must launch copy_on_fork once per selection
-    step, anc never."""
-    params, cfg = tts.params["gpt"], tts.gpt_cfg
-    sc = tts._sampling_config({})                 # the reference's defaults
-    x = tts.fused_batch(tts.sentence_rows(text))
-    conds = tts._conditioning(tts._cond_mel(prompt))
-    emb, keep = decode_mod.build_prefix_emb(params, cfg, conds, x["ids"],
-                                            x["pos"], x["seg"], x["cond_idx"])
-    out = {"anc": [], "cof": []}
-    codes = {}
-    for reorder in ("anc", "cof", "cof", "anc"):
-        gen = torch.Generator("cuda").manual_seed(1)
-        torch.cuda.synchronize()
-        zero_counts()
-        t0 = time.perf_counter()
-        res = decode_mod._beam_decode(params, cfg, sc, emb, keep, gen, 3, 0.0,
-                                      stochastic=True, reorder=reorder,
-                                      live=x["live"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-        check_beam_result(res, cfg, sc, x["live"])
-        forks = counts["copy_on_fork"]
-        if forks != (res.steps if reorder == "cof" else 0):
-            raise AssertionError(f"{reorder}: copy_on_fork launched {forks} "
-                                 f"times over {res.steps} steps")
-        codes.setdefault(reorder, []).append(res.codes.cpu())
-        out[reorder].append({
-            "bn": emb.shape[0] * 3, "steps": res.steps,
-            "lengths": res.lengths.cpu().tolist(), "wall_s": wall,
-            "ms_per_step": 1e3 * wall / res.steps,
-            "launches": {k: v for k, v in counts.items() if v}})
-    out["agree"] = dict(agreement(codes["anc"][0], codes["cof"][0]),
-                        anc_repeat_identical=bool(torch.equal(*codes["anc"])),
-                        cof_repeat_identical=bool(torch.equal(*codes["cof"])))
-    # ROADMAP C6: the same prefix and seed in float32 (the bf16 weights cast
-    # up, float32 products without TF32), 64 steps; reported, not asserted
-    p32 = weights.cast_floating(params, torch.float32)
-    emb32, keep32 = decode_mod.build_prefix_emb(p32, cfg, conds, x["ids"],
-                                                x["pos"], x["seg"],
-                                                x["cond_idx"])
-    sc64 = replace(sc, max_mel_tokens=64)
-    f32 = {}
-    for reorder in ("anc", "cof"):
-        gen = torch.Generator("cuda").manual_seed(1)
-        f32[reorder] = decode_mod._beam_decode(
-            p32, cfg, sc64, emb32, keep32, gen, 3, 0.0, stochastic=True,
-            reorder=reorder, live=x["live"]).codes.cpu()
-    out["agree_float32"] = dict(agreement(f32["anc"], f32["cof"]), steps=64)
-    del p32, emb32
-    return out
-
-
-def agreement(a: torch.Tensor, b: torch.Tensor) -> dict:
-    """Equal tokens of two (rows, steps) code tensors, and per row the first
-    step at which they differ (None: never)."""
-    same = a == b
-    return {"tokens": int(same.sum()), "of": same.numel(),
-            "first_diff_step": [int(r.nonzero()[0]) if r.any() else None
-                                for r in ~same]}
 
 
 def check_vocoder(tts: IndexTTS) -> float:
@@ -1913,105 +1804,12 @@ def run_legacy_cond(tts: IndexTTS, prompt: str):
     return counts, rep
 
 
-# slice 9: every history strategy of the beam decode, at the cap below
-HIST_CAP = 64
-# float32 beam search: strategies that must give "full"'s tokens and those
-# that must give "split"'s (the same arithmetic); the routed anc, ancfull,
-# ancb, ancsw and ancg have their agreement with "full" printed (ROADMAP C6:
-# float32 near-ties may split them), the diagnostic none, ancnone and
-# splitnone (wrong by design) are checked for shape only
-HIST_AS_FULL = ("gen", "flat", "flatfull", "mm", "blocked")
-HIST_AS_SPLIT = ("cof", "cofdense")
+# slice 9: the cap of the float32 beam search that decodes codes for the
+# latent pass
+LATENT_CAP = 64
 # the dvae card-vs-CPU decode and the sinc conv: float32 convs of up to
 # 1024 channels in another summation order, relative to max|CPU|
 DVAE_TOL = 1e-4
-
-
-def run_histories(tts: IndexTTS, prompt: str):
-    """Every beam history strategy at cap 64, each run with every launch
-    count set to 0 just before it, in four sweeps: float32 beam search on
-    the beam-cof phase's prefix (TEXTS[2] padded to its batch bucket, one
-    dead row: BN 12; the weights cast to float32, products without TF32),
-    codes and lengths asserted equal to "full" or "split"; bf16 beam
-    sampling with the reference's defaults on the same prefix and on one
-    sentence (TEXTS[1], BN 3), each run from one seed, ms a step; the BN 3
-    sweep runs twice, the second time in reverse order (its spread). One
-    untimed decode of each cache family warms the allocator first.
-    copy_on_fork launches once per step on "cof" and "cofdense" and on no
-    other strategy; no other kernel launches in a decode. The BN 12 bf16
-    sweep's counts are the paths slice9/histories/<strategy>."""
-    params, cfg = tts.params["gpt"], tts.gpt_cfg
-    conds = tts._conditioning(tts._cond_mel(prompt))
-    p32 = weights.cast_floating(params, torch.float32)
-    sc = replace(tts._sampling_config({}), max_mel_tokens=HIST_CAP)
-    multi = tts.fused_batch(tts.sentence_rows(TEXTS[2]))
-    single = tts.fused_batch(tts.sentence_rows(TEXTS[1]))
-    sweeps = {"float32_search": (p32, False, multi, 1),
-              "bf16_sample": (params, True, multi, 1),
-              "bf16_sample_bn3": (params, True, single, 1),
-              "bf16_sample_bn3_reversed": (params, True, single, -1)}
-    runs = {}
-    for sweep, (p, stochastic, x, order) in sweeps.items():
-        emb, keep = decode_mod.build_prefix_emb(p, cfg, conds, x["ids"],
-                                                x["pos"], x["seg"],
-                                                x["cond_idx"])
-        sc_run = replace(sc, do_sample=stochastic)
-        if sweep == "float32_search":
-            for reorder in ("anc", "ancfull", "split", "full"):
-                decode_mod._beam_decode(p, cfg, replace(sc_run,
-                                                        max_mel_tokens=16),
-                                        emb, keep, None, 3, 0.0, stochastic,
-                                        reorder=reorder, live=x["live"])
-        for reorder in decode_mod.BEAM_REORDERS[::order]:
-            gen = torch.Generator("cuda").manual_seed(1)
-            torch.cuda.synchronize()
-            zero_counts()
-            t0 = time.perf_counter()
-            res = decode_mod._beam_decode(p, cfg, sc_run, emb, keep, gen, 3,
-                                          0.0, stochastic=stochastic,
-                                          reorder=reorder, live=x["live"])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = read_counts()
-            check_beam_result(res, cfg, sc_run, x["live"])
-            want = {name: 0 for name in COUNTED}
-            if reorder in HIST_AS_SPLIT:
-                want["copy_on_fork"] = res.steps
-            if counts != want:
-                raise AssertionError(f"histories {sweep} {reorder}: launches "
-                                     f"{counts}, want {want}")
-            runs[(sweep, reorder)] = (res, counts, wall)
-        del emb, keep
-    del p32
-    f32 = {r: runs[("float32_search", r)][0] for r in decode_mod.BEAM_REORDERS}
-    same = lambda a, b: (torch.equal(f32[a].codes, f32[b].codes)
-                         and torch.equal(f32[a].lengths, f32[b].lengths))
-    for group, ref in ((HIST_AS_FULL, "full"), (HIST_AS_SPLIT, "split")):
-        for reorder in group:
-            if not same(reorder, ref):
-                raise AssertionError(
-                    f"histories float32: {reorder} differs from {ref}: "
-                    f"{agreement(f32[reorder].codes.cpu(), f32[ref].codes.cpu())}")
-    report = {"cap": HIST_CAP,
-              "asserted_equal": {"full": list(HIST_AS_FULL),
-                                 "split": list(HIST_AS_SPLIT)},
-              "split_vs_full": agreement(f32["split"].codes.cpu(),
-                                         f32["full"].codes.cpu())}
-    paths = {}
-    for sweep, (_, _, x, _) in sweeps.items():
-        full = runs[(sweep, "full")][0].codes.cpu()
-        rep = report[sweep] = {"bn": x["ids"].shape[0] * 3}
-        for r in decode_mod.BEAM_REORDERS:
-            res, counts, wall = runs[(sweep, r)]
-            rep[r] = {"steps": res.steps, "ms_per_step": 1e3 * wall / res.steps,
-                      "vs_full": agreement(res.codes.cpu(), full),
-                      "launches": {k: v for k, v in counts.items() if v}}
-            if sweep == "float32_search":
-                rep[r]["lengths"] = res.lengths.cpu().tolist()
-            if sweep == "bf16_sample":
-                paths[f"slice9/histories/{r}"] = counts
-    del runs, f32
-    return paths, report
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -2026,80 +1824,18 @@ def _wall_ms(fn, reps: int = 3) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def run_fused_window(tts: IndexTTS, prompt: str):
-    """``fuse_bigvgan_params`` + ``_vocode_window_fused`` on one window
-    (window + 2·halo frames of a sampling request's latents) with the
-    engine's vocoder weights cast to float32, beside ``_vocode_window`` on
-    the same latent, ``use_pallas`` off and on. Off: within VOCODER_TOL.
-    On: both run B3 at act_post and the window function at every
-    activation, where B3 recomputes over replicated input near the window
-    ends: within VOCODER_TOL at least EDGE_FRAMES from the ends and
-    EDGE_TOL everywhere (as vocoder-ref). The checked fused call with
-    use_pallas launches B3 once (act_post) and no other kernel. Returns the
-    fused window's float32 wav for the eval phase."""
-    p32 = weights.cast_floating(tts.params["bigvgan"], torch.float32)
-    voc = tts.vocoder
-    frames = voc.window + 2 * voc.halo
-    tts.infer_fast(prompt, TEXTS[1], num_beams=1, max_mel_tokens=200)
-    lat = tts.last_fused_res.lat[:1, :frames].float()
-    if lat.shape[1] != frames:
-        raise AssertionError(f"fused-window: {lat.shape[1]} latent frames, "
-                             f"want {frames}")
-    spk = voc_mod.speaker_embedding(p32, tts._cond_mel(prompt).transpose(1, 2)
-                                    .float())
-    t0 = time.perf_counter()
-    fused = voc_mod.fuse_bigvgan_params(p32, tts.bigvgan_cfg)
-    torch.cuda.synchronize()
-    fuse_s = time.perf_counter() - t0
-    fused_bytes = sum(v.numel() * v.element_size()
-                      for st in fused["stages"] for v in st.values())
-    up = voc.upsample
-    inner = slice(EDGE_FRAMES * up, (frames - EDGE_FRAMES) * up)
-    out, counts = {}, None
-    for flag in (False, True):
-        bcfg = replace(tts.bigvgan_cfg, use_pallas=flag)
-        torch.cuda.synchronize()
-        zero_counts()
-        got = voc_mod._vocode_window_fused(fused, bcfg, lat, spk)
-        torch.cuda.synchronize()
-        c = read_counts()
-        want = {name: 0 for name in COUNTED}
-        want["snake_clast"] = int(flag)
-        if c != want:
-            raise AssertionError(f"fused-window use_pallas={flag}: launches "
-                                 f"{c}, want {want}")
-        if flag:
-            counts = c
-        ref = voc_mod._vocode_window(p32, bcfg, lat, spk)
-        if got.shape != (1, frames * up) or not torch.isfinite(got).all():
-            raise AssertionError(f"fused-window {tuple(got.shape)}")
-        diff = (got - ref).abs()[0]
-        whole, mid = float(diff.max()), float(diff[inner].max())
-        ok = (whole <= EDGE_TOL and mid <= VOCODER_TOL) if flag \
-            else whole <= VOCODER_TOL
-        if not ok:
-            raise AssertionError(f"fused-window use_pallas={flag} vs the "
-                                 f"window function: interior {mid}, whole "
-                                 f"{whole}")
-        out[f"use_pallas={flag}"] = {
-            "vs_window_interior": mid, "vs_window_whole": whole,
-            # random weights drive much of the wav into tanh's saturation,
-            # where both routes give exactly ±1
-            "unsaturated_share": float((ref.abs() < 0.999).float().mean()),
-            "wav_max_abs": float(ref.abs().max()),
-            "fused_ms": _wall_ms(lambda: voc_mod._vocode_window_fused(
-                fused, bcfg, lat, spk)),
-            "window_ms": _wall_ms(lambda: voc_mod._vocode_window(
-                p32, bcfg, lat, spk))}
-        if not flag:
-            wav = got[0].cpu().numpy()
-    del fused, p32
-    gc.collect()
-    torch.cuda.empty_cache()
-    return counts, wav, {"frames": frames, "fuse_s": fuse_s,
-                         "fused_stage_bytes": fused_bytes,
-                         "launches": {k: v for k, v in counts.items() if v},
-                         **out}
+def sampling_wav(tts: IndexTTS, prompt: str) -> np.ndarray:
+    """The float32 wav of one sampling request (TEXTS[1] at cap 300) for
+    the phases that need an engine wav: the speaker similarity and the
+    vocoder's training losses. Above ``FUSED_FULL_VOCODE_MAX_STEPS`` (256)
+    the fused route streams the latents and keeps that wav on the host
+    (``last_wav``); at or below it the wav stays on the device."""
+    tts.infer_fast(prompt, TEXTS[1], num_beams=1, max_mel_tokens=300)
+    wav = np.asarray(tts.last_wav, np.float32)
+    if wav.size < VOCODER_TRAIN_SAMPLES or not np.isfinite(wav).all():
+        raise AssertionError(f"sampling wav: {wav.size} samples, finite "
+                             f"{bool(np.isfinite(wav).all())}")
+    return wav
 
 
 def run_dvae_eval(tts: IndexTTS, prompt: str, wav: np.ndarray):
@@ -2107,7 +1843,7 @@ def run_dvae_eval(tts: IndexTTS, prompt: str, wav: np.ndarray):
     prompt's mel (cut to a multiple of 4 frames): the card's codes equal
     the CPU's, the decoded mel within DVAE_TOL; sinc_conv.forward (80
     filters of 251 taps, 16 kHz) on the card against the CPU on a second of
-    the prompt; speaker_similarity of the prompt and the fused window's
+    the prompt; speaker_similarity of the prompt and a sampling request's
     wav on the engine's ECAPA, in [-1, 1]; forward_latent against
     forward_latent_bucketed in float32 on one sentence of TEXTS[2] and
     codes decoded for it (float32 beam search, cap 64)."""
@@ -2159,7 +1895,7 @@ def run_dvae_eval(tts: IndexTTS, prompt: str, wav: np.ndarray):
                                             x["pos"], x["seg"], x["cond_idx"])
     res = decode_mod._beam_decode(
         params, gcfg, replace(tts._sampling_config({}), do_sample=False,
-                              max_mel_tokens=HIST_CAP),
+                              max_mel_tokens=LATENT_CAP),
         emb, keep, None, 3, 0.0, stochastic=False, live=x["live"])
     n_codes = int(res.lengths[0])
     codes_row = res.codes[:1, :n_codes]
@@ -2932,11 +2668,6 @@ def main() -> int:
             raise AssertionError("the anc beam path launched copy_on_fork")
 
         t1 = time.perf_counter()
-        strat = run_beam_strategies(tts, prompt, TEXTS[2])
-        paths["beam-cof"] = strat["cof"][0]["launches"]
-        phase("main/beam-cof", t1, json.dumps(strat))
-
-        t1 = time.perf_counter()
         verr = check_vocoder(tts)
         phase("main/vocoder-vs-exact", t1, f"max_abs_err {verr:.3g}")
 
@@ -2976,17 +2707,10 @@ def main() -> int:
 
         t0 = time.perf_counter()
         t1 = time.perf_counter()
-        hist_paths, report = run_histories(tts, prompt)
-        paths.update(hist_paths)
-        phase("slice9/histories", t1, json.dumps(report))
-        t1 = time.perf_counter()
-        paths["slice9/fused-window"], fused_wav, report = run_fused_window(
-            tts, prompt)
-        phase("slice9/fused-window", t1, json.dumps(report))
-        t1 = time.perf_counter()
+        engine_wav = sampling_wav(tts, prompt)
         zero_counts()
         paths["slice9/dvae-eval"], report = run_dvae_eval(tts, prompt,
-                                                          fused_wav)
+                                                          engine_wav)
         phase("slice9/dvae-eval", t1, json.dumps(report))
         phase("slice9", t0)
 
@@ -3002,7 +2726,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         phase("slice10/train-vocoder", t1,
-              json.dumps(run_train_vocoder(fused_wav)))
+              json.dumps(run_train_vocoder(engine_wav)))
         phase("slice10", t0)
 
         t0 = time.perf_counter()
@@ -3057,9 +2781,12 @@ def main() -> int:
                   "index_tts_dubbing_tpu_torch/csrc/snake_clast.cu",
                   "index_tts_dubbing_tpu/ops/pallas_snake.py:221"),
         summarize_permute(perms["copy_on_fork"], COF_HEADLINE,
-                          paths["beam-cof"]["copy_on_fork"], "copy_on_fork",
+                          sum(by_path("copy_on_fork").values()),
+                          "copy_on_fork",
                           "index_tts_dubbing_tpu_torch/csrc/permute.cu",
-                          f"{pallas_permute}:182"),
+                          f"{pallas_permute}:182",
+                          launches_note="no caller on any path: only the "
+                                        "kernel phase launches it"),
         summarize_permute(perms["gather"], GATHER_HEADLINE,
                           sum(gathers.values()), "permute_gen_cache",
                           "index_tts_dubbing_tpu_torch/csrc/permute.cu",
@@ -3077,9 +2804,6 @@ def main() -> int:
         "launches_by_path")
     kernels[2]["launches_note"] = ("launches: the vocoder-ref stream "
                                    "(stream_device, 600 frames)")
-    kernels[3]["launches_note"] = ("launches: the beam-cof decode; every "
-                                   "history in launches_by_path "
-                                   "(slice9/histories/*, bf16 sampling)")
     kernels[1]["widths"] = k2_widths
     kernels[0]["c_le_128_stages"] = k1_stages
     kernels[0]["ragged"] = ragged["snake_cmajor"]

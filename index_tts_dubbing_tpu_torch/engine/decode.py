@@ -18,10 +18,10 @@ Every decode takes ``mesh=``: each data group decodes its contiguous rows
 of the global batch, tensor-parallel over ``model`` (models/gpt.py), and
 the codes are gathered back, as the JAX decode shards its batch.
 
-The beam decode's default history, "anc", keeps its step counter on the
-device as well, so one step reads no host value; given a caller's
-``BeamWorkspaces`` on a card, it captures that step once as a CUDA graph
-per shape and replays it at every later step.
+The beam decode keeps each beam's history by an ancestry map ("anc") and
+its step counter on the device, so one step reads no host value; given a
+caller's ``BeamWorkspaces`` on a card, it captures that step once as a
+CUDA graph per shape and replays it at every later step.
 """
 from __future__ import annotations
 
@@ -36,7 +36,6 @@ import torch
 from index_tts_dubbing_tpu_torch import nn
 from index_tts_dubbing_tpu_torch.config import GPTConfig
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
-from index_tts_dubbing_tpu_torch.ops import permute
 from index_tts_dubbing_tpu_torch.parallel import mesh as tp
 from index_tts_dubbing_tpu_torch.utils import profiling
 
@@ -121,11 +120,21 @@ def build_prefix_emb(params: Dict[str, Any], cfg: GPTConfig,
     return emb.to(dtype), pad_keep
 
 
+def _log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """Log-softmax over the last axis, rounded as the JAX package's
+    (``jax.nn.log_softmax``): ``(x - max) - log(sum(exp(x - max)))``.
+    ``torch.log_softmax`` rounds ``x - (max + log(sum(...)))`` and parts
+    from it by an ulp on about a third of the entries, which at a near-tie
+    moves the edge of the typical set."""
+    s = x - x.amax(dim=-1, keepdim=True)
+    return s - torch.log(torch.exp(s).sum(dim=-1, keepdim=True))
+
+
 def _typical_filter(logits: torch.Tensor, mass: float,
                     min_tokens_to_keep: int = 1) -> torch.Tensor:
     """Locally-typical filtering: keep the tokens whose |surprisal − entropy|
     is smallest, up to cumulative probability ``mass``."""
-    logp = torch.log_softmax(logits, dim=-1)
+    logp = _log_softmax(logits)
     p = logp.exp()
     ent = -torch.where(p > 0, logp * p, torch.zeros_like(p)).sum(-1, keepdim=True)
     shifted = (-logp - ent).abs()
@@ -336,67 +345,17 @@ def _generate(params, cfg, sc, prefix_emb, pad_keep, generator, live,
 # with -1e9 so that the nb copies do not repeat; beam sampling keeps all
 # scores at zero (HF samples over nb identical copies, a quirk kept).
 #
-# History reorder (``reorder``), the counterpart of HF ``_reorder_cache``,
-# which gathers the whole cache every step. The JAX package's strategies,
-# by family:
-#
-# - ancestry, over a split cache (gpt.SplitCache: the prefix once per
-#   batch row, the gen region per beam in the heads-major layout): no cache
-#   row ever moves; a per-slot map (B, nb, G) says which physical beam of
-#   its row holds each slot, and attention routes through it.
-#     "anc" (default)  scores against every physical beam, the ancestor's
-#                      selected (gpt.trunk_decode_step_split_anc);
-#     "ancb"           the map as an additive -1e30 bias over one flattened
-#                      (nb·G) key axis (..._split_anc_bias);
-#     "ancsw"          "anc" with the gen products bounded to the smallest
-#                      of three widths that covers the occupied slots
-#                      (..._split_anc_sw);
-#     "ancg"           the whole layer-stacked gen cache routed by two
-#                      gathers before the layer loop (..._split_ancg);
-#     "ancfull"        one merged (L, B, H, nb, S, D) buffer with the prefix
-#                      replicated per beam; the map runs over absolute slots
-#                      (gpt.trunk_decode_step_anc_full).
-# - split: the same split cache in the (L, B·nb, H, G, D) layout.
-#     "split"          the gen region gathered by the switch every step;
-#     "cof"            copy-on-fork: beams that survive keep their physical
-#                      rows, each forked beam copies its ancestor's history
-#                      into a row a dead beam freed (ops/permute
-#                      .copy_on_fork, kernel B4, one launch per step); the
-#                      trunk runs in physical row order.
-# - legacy single buffer: the prefix repeated nb times at prefill into one
-#   (L, B·nb, H, S0 + G, D) cache, decoded by gpt.trunk_decode_step.
-#     "full", "flatfull"  gather the whole cache by the switch;
-#     "gen", "flat"       gather only the gen region [S0, S0 + G);
-#     "mm"                the gen region permuted by a one-hot product over
-#                         the beam axis;
-#     "blocked"           the gen region in blocks of 128 slots, each
-#                         gathered only once written and when the switch is
-#                         not the identity.
-# - diagnostic:
-#     "none", "ancnone", "splitnone"  skip the reorder ("ancnone" keeps the
-#                         "anc" step, "splitnone" the split step): wrong by
-#                         design whenever a switch is not the identity;
-#     "cofdense"          B4's copies, then a dense gather of the gen region
-#                         back to identity row maps: cof's copy bookkeeping
-#                         without its physical-order trunk step.
-# Every strategy but "none", "ancnone" and "splitnone" gives the tokens of
-# "full" (in float32: bf16 rounds the split and ancestry attention apart
-# from the single buffer's on near-ties).
+# The history: HF ``_reorder_cache`` gathers the whole cache every step;
+# here no cache row ever moves. The cache is split (gpt.SplitCache): the
+# prefix once per batch row, the gen region per beam in the heads-major
+# ancestry layout (L, B, H, nb, G, D). An ancestry map (B, nb, G) says
+# which physical beam of its row holds each logical beam's gen slot; a
+# step scores against every physical beam and attention takes the
+# ancestor's (gpt.trunk_decode_step_split_anc), and a beam switch composes
+# the map alone. The JAX package's ``engine/decode.py`` keeps its other
+# history strategies, which the tests compare against.
 
 _BEAM_NEG = -1e9
-_ANC = ("anc", "ancnone", "ancb", "ancsw", "ancg")
-_SPLIT = ("split", "splitnone", "cof", "cofdense")
-_LEGACY = ("full", "gen", "flat", "flatfull", "mm", "blocked", "none")
-BEAM_REORDERS = _ANC + ("ancfull",) + _SPLIT + _LEGACY
-# the ancestry strategies' trunk steps, by name in models/gpt.py (looked up
-# at each call, so a caller may wrap one there)
-_ANC_STEPS = {"anc": "trunk_decode_step_split_anc",
-              "ancnone": "trunk_decode_step_split_anc",
-              "ancb": "trunk_decode_step_split_anc_bias",
-              "ancsw": "trunk_decode_step_split_anc_sw",
-              "ancg": "trunk_decode_step_split_ancg"}
-# "blocked": gen slots per block
-_SB = 128
 
 
 def _gumbel(shape, generator: Optional[torch.Generator], device
@@ -439,11 +398,9 @@ def _warp_scores(scores: torch.Tensor, sc: SamplingConfig,
     return scores
 
 
-def _at(x: torch.Tensor, j: gpt_model.Slot) -> torch.Tensor:
-    """``x[j]`` along the first axis; a 0-d device tensor ``j`` is read on
+def _at(x: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """``x[j]`` along the first axis for a 0-d device tensor ``j``, read on
     the device, with no sync."""
-    if not torch.is_tensor(j):
-        return x[j]
     return x.index_select(0, j.reshape(1))[0]
 
 
@@ -451,7 +408,6 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
                  prefix_emb: torch.Tensor, pad_keep: torch.Tensor,
                  generator: Optional[torch.Generator], num_beams: int,
                  length_penalty: float, stochastic: bool,
-                 reorder: str = "anc",
                  live: Optional[torch.Tensor] = None,
                  mesh=None,
                  workspaces: Optional[BeamWorkspaces] = None
@@ -459,25 +415,17 @@ def _beam_decode(params: Dict[str, Any], cfg: GPTConfig, sc: SamplingConfig,
     """Beam search (``stochastic=False``) or beam sampling; returns the best
     hypothesis per row. prefix_emb (B, S0, C) ends with the start_mel slot;
     ``live`` (B,) bool marks batch-padding rows False, which are done from
-    step 0; ``reorder`` names the history strategy (``BEAM_REORDERS``, see
-    above). The step counter stays on the host ("anc" also keeps one on
-    the device), and "every row done" is checked on the host every 8
-    steps. ``mesh``: as in ``generate``; the beams of a row stay on its
-    data group, and "cof" and "cofdense" decode as "split" (as in JAX,
-    kernel B4 serves one card only). ``workspaces``: the caller's
-    ``BeamWorkspaces``, where "anc" without a mesh decodes over the
+    step 0. The step counter lives on the device, and "every row done" is
+    checked on the host every 8 steps. ``mesh``: as in ``generate``; the
+    beams of a row stay on its data group. ``workspaces``: the caller's
+    ``BeamWorkspaces``, where a decode without a mesh runs over the
     workspace of its shape, on a card each step a CUDA graph's replay;
     without it every step runs eagerly."""
-    if reorder not in BEAM_REORDERS:
-        raise ValueError(f"unknown beam reorder strategy {reorder!r}: one of "
-                         f"{BEAM_REORDERS}")
-    if mesh is not None and reorder in ("cof", "cofdense"):
-        reorder = "split"
-    if mesh is not None or reorder != "anc":
+    if mesh is not None:
         workspaces = None
     with tp.use(mesh):
         return _beam(params, cfg, sc, prefix_emb, pad_keep, generator,
-                     num_beams, length_penalty, stochastic, reorder, live,
+                     num_beams, length_penalty, stochastic, live,
                      _Rows(mesh, prefix_emb.shape[0], live), workspaces)
 
 
@@ -486,35 +434,26 @@ class _Beam:
     (B rows of nb beams, a prefix of S0 slots, G = ``max_mel_tokens``
     generated ones) and the constants made once on the device. Its methods
     run the prefill, the steps and the finalize over a state ``st``
-    (``new_state``): every tensor a decode updates. A step updates them in
-    place and never rebinds them, but for the histories whose cache moves
-    ("split", "cof", "cofdense" and the legacy single buffer)."""
+    (``new_state``): every tensor a decode updates, each updated in place
+    and never rebound."""
 
     def __init__(self, params, cfg: GPTConfig, sc: SamplingConfig,
                  generator: Optional[torch.Generator], num_beams: int,
-                 length_penalty: float, stochastic: bool, reorder: str,
-                 part: _Rows, b: int, s0: int, dev, dtype):
+                 length_penalty: float, stochastic: bool, part: _Rows, b: int,
+                 s0: int, dev, dtype):
         self.params, self.cfg, self.sc = params, cfg, sc
         self.generator, self.stochastic = generator, stochastic
-        self.reorder, self.part = reorder, part
+        self.part = part
         self.b, self.nb, self.s0 = b, num_beams, s0
         self.bn = b * num_beams
         self.n_cand = 2 * num_beams
         self.max_steps = sc.max_mel_tokens
-        self.s_total = s0 + self.max_steps
         self.vocab = cfg.number_mel_codes
         self.stop = cfg.stop_mel_token
         self.dev, self.dtype = dev, dtype
-        self.anc = reorder in _ANC
-        self.ancfull = reorder == "ancfull"
-        self.cof = reorder in ("cof", "cofdense")
-        nb = num_beams
-        self.beams = torch.arange(nb, device=dev)
-        self.row_off = torch.arange(b, device=dev)[:, None] * nb    # (B, 1)
+        self.beams = torch.arange(num_beams, device=dev)
         self.rows_bn = torch.arange(self.bn, device=dev)
         self.rank = torch.arange(self.n_cand, device=dev)[None, :]
-        self.earlier = torch.ones((nb, nb), dtype=torch.bool,
-                                  device=dev).tril(-1)
         self.true = torch.ones((), dtype=torch.bool, device=dev)
         # generated_len ** length_penalty for generated_len = 1..max_steps,
         # made once on the device so that no step copies a host value to
@@ -523,22 +462,17 @@ class _Beam:
                                   device=dev).pow(float(length_penalty))
 
     # -- the state --------------------------------------------------------
-    def anc_cache(self) -> gpt_model.SplitCache:
-        """A new "anc" split cache: the prefix (L, B, H, S0, D) and the gen
-        region in the ancestry layout (L, B, H, nb, G, D), zeros."""
-        cfg, dtype, dev = self.cfg, self.dtype, self.dev
-        return gpt_model.SplitCache(
-            *gpt_model.init_cache(cfg, self.b, self.s0, dtype, dev),
-            *gpt_model.init_gen_cache_anc(cfg, self.b, self.nb,
-                                          self.max_steps, dtype, dev))
-
-    def new_state(self, cache) -> SimpleNamespace:
-        """The tensors a decode updates, over the history's ``cache``;
-        ``reset`` sets their values."""
+    def new_state(self) -> SimpleNamespace:
+        """The tensors a decode updates, zeros or unset; ``reset`` sets
+        their values. The cache: the prefix (L, B, H, S0, D) and the gen
+        region in the ancestry layout (L, B, H, nb, G, D)."""
         b, nb, bn, g, dev = self.b, self.nb, self.bn, self.max_steps, self.dev
+        cfg, dtype = self.cfg, self.dtype
         long = dict(dtype=torch.long, device=dev)
         return SimpleNamespace(
-            cache=cache,
+            cache=gpt_model.SplitCache(
+                *gpt_model.init_cache(cfg, b, self.s0, dtype, dev),
+                *gpt_model.init_gen_cache_anc(cfg, b, nb, g, dtype, dev)),
             tokens=torch.empty((bn, g), **long),
             seen=torch.empty((bn, self.vocab), dtype=torch.bool, device=dev),
             beam_scores=torch.empty((bn,), dtype=torch.float32, device=dev),
@@ -547,18 +481,11 @@ class _Beam:
             pool_norm=torch.empty((b, nb), dtype=torch.float32, device=dev),
             pool_tok=torch.empty((b, nb, g), **long),
             pool_len=torch.empty((b, nb), **long),
-            # cof: logical → physical and physical → logical row maps
-            m=self.rows_bn, inv=self.rows_bn,
-            # anc: (B, nb, G) logical beam × gen slot → physical beam in its
-            # row; ancfull: the same over the absolute slots (B, nb, S0 + G)
-            amap=torch.empty((b, nb, self.s_total if self.ancfull else g),
-                             **long),
-            # "anc": the tokens generated so far, on the device
+            # (B, nb, G) logical beam × gen slot → physical beam in its row
+            amap=torch.empty((b, nb, g), **long),
+            # the tokens generated so far, on the device
             j=torch.zeros((), **long),
-            pad_keep=torch.empty((b, self.s0), dtype=torch.bool, device=dev),
-            # the legacy single buffer and "ancfull": slot validity (B·nb or
-            # B, S0 + G)
-            keep_full=None)
+            pad_keep=torch.empty((b, self.s0), dtype=torch.bool, device=dev))
 
     def reset(self, st: SimpleNamespace, pad_keep: torch.Tensor,
               live: Optional[torch.Tensor]) -> None:
@@ -586,89 +513,41 @@ class _Beam:
                 live: Optional[torch.Tensor],
                 st: Optional[SimpleNamespace] = None
                 ) -> Tuple[SimpleNamespace, torch.Tensor]:
-        """The prefix through the trunk into the history's cache, and the
+        """The prefix through the trunk into the cache's prefix, and the
         state set for a new decode: (st, the hidden state (B, C) of the
-        prefix's last position). ``st``: an "anc" state to decode over again
-        (a workspace's); otherwise a new state. Its gen cache keeps the last
+        prefix's last position). ``st``: a state to decode over again (a
+        workspace's); otherwise a new state. Its gen cache keeps the last
         decode's K/V: a step writes slot j - 1 before it attends to it, and
         the slots after it take an additive ``_NEG`` bias, so their finite
         stale values get a weight of exactly 0, as the zeros of a new cache
         do."""
-        params, cfg, dev, dtype = self.params, self.cfg, self.dev, self.dtype
-        b, nb, max_steps = self.b, self.nb, self.max_steps
-        keep_full = None
-        if self.anc:
-            if st is None:
-                st = self.new_state(self.anc_cache())
-            h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep,
-                                        gpt_model.KVCache(st.cache.kp,
-                                                          st.cache.vp))
-        elif self.reorder in _LEGACY:
-            full = gpt_model.init_cache(cfg, b, self.s_total, dtype, dev)
-            h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep,
-                                        full)
-            # a row's beams are contiguous (row-major (B, nb))
-            cache = gpt_model.KVCache(full.k.repeat_interleave(nb, dim=1),
-                                      full.v.repeat_interleave(nb, dim=1))
-            del full
-            keep_full = torch.cat([pad_keep.repeat_interleave(nb, dim=0),
-                                   torch.ones((self.bn, max_steps),
-                                              dtype=torch.bool, device=dev)],
-                                  dim=1)
-        else:
-            pcache = gpt_model.init_cache(cfg, b, self.s0, dtype, dev)
-            h = gpt_model.trunk_prefill(params, cfg, prefix_emb, pad_keep,
-                                        pcache)
-            if self.ancfull:
-                shape = (cfg.layers, b, gpt_model.local_heads(cfg), nb,
-                         self.s_total, cfg.head_dim)
-                kf = torch.zeros(shape, dtype=dtype, device=dev)
-                vf = torch.zeros(shape, dtype=dtype, device=dev)
-                kf[:, :, :, :, :self.s0] = pcache.k[:, :, :, None]
-                vf[:, :, :, :, :self.s0] = pcache.v[:, :, :, None]
-                cache = gpt_model.KVCache(kf, vf)
-                keep_full = torch.cat([pad_keep, torch.ones(
-                    (b, max_steps), dtype=torch.bool, device=dev)], dim=1)
-            else:
-                cache = gpt_model.SplitCache(
-                    pcache.k, pcache.v,
-                    *gpt_model.init_gen_cache(cfg, self.bn, max_steps, dtype,
-                                              dev))
-            del pcache
         if st is None:
-            st = self.new_state(cache)
+            st = self.new_state()
+        h = gpt_model.trunk_prefill(self.params, self.cfg, prefix_emb,
+                                    pad_keep, gpt_model.KVCache(st.cache.kp,
+                                                                st.cache.vp))
         self.reset(st, pad_keep, live)
-        st.keep_full = keep_full
         return st, h
 
     def first_step(self, st: SimpleNamespace, h: torch.Tensor) -> None:
         """Step 0, on the prefill's hidden state."""
         logp = self.penalised_logp(h.repeat_interleave(self.nb, dim=0),
                                    st.seen)
-        if self.reorder == "anc":
-            self.select(st, logp, st.j)
-            st.j += 1
-        else:
-            self.select(st, logp, 0)
+        self.select(st, logp, st.j)
+        st.j += 1
 
-    def step(self, st: SimpleNamespace, j: int) -> None:
-        """The step after j generated tokens: the previous token's
+    def step(self, st: SimpleNamespace) -> None:
+        """The step after ``st.j`` generated tokens: the previous token's
         embedding at mel position j + 1 (parity quirk), the trunk, the
-        selection. "anc" reads j from the state's device counter ``st.j``
-        in place of the host's, and advances it: every value its step reads
-        is then on the device and every tensor it writes is written in
-        place, so a CUDA graph captures the step whole
-        (``BeamWorkspaces``)."""
-        anc = self.reorder == "anc"
-        if anc:
-            j = st.j
-        w = self.params
+        selection; then it advances ``st.j``. Every value the step reads
+        is on the device and every tensor it writes is written in place, so
+        a CUDA graph captures the step whole (``BeamWorkspaces``)."""
+        j, w = st.j, self.params
         emb = (w["mel_emb"]["w"][st.prev]
                + _at(w["mel_pos"]["w"], j + 1)).to(self.dtype)
         self.select(st, self.penalised_logp(self.trunk_step(st, emb, j),
                                             st.seen), j)
-        if anc:
-            st.j += 1
+        st.j += 1
 
     def finalize(self, st: SimpleNamespace, steps: int) -> GenerateResult:
         """Open beams of rows not done join the pool at max_steps; the best
@@ -697,7 +576,7 @@ class _Beam:
                        ) -> torch.Tensor:
         sc = self.sc
         logits = gpt_model.mel_logits_from_hidden(self.params, hid).float()
-        logp = torch.log_softmax(logits, dim=-1)
+        logp = _log_softmax(logits)
         if sc.repetition_penalty != 1.0:
             pen = torch.where(logp > 0, logp / sc.repetition_penalty,
                               logp * sc.repetition_penalty)
@@ -709,7 +588,7 @@ class _Beam:
         return logp
 
     def select(self, st: SimpleNamespace, logp: torch.Tensor,
-               j: gpt_model.Slot) -> None:
+               j: torch.Tensor) -> None:
         self.process(st, *self.select_candidates(logp, st.beam_scores), j)
 
     def select_candidates(self, logp: torch.Tensor, beam_scores: torch.Tensor):
@@ -737,103 +616,22 @@ class _Beam:
         xv = x.reshape(self.b, self.nb, -1)
         return torch.gather(xv, 1, src[..., None].expand(-1, -1, xv.shape[2]))
 
-    def reorder_cof(self, st: SimpleNamespace, src: torch.Tensor, j: int
-                    ) -> None:
-        """Copy-on-fork: the first beam to claim a physical row keeps it;
-        each later claim (a fork) takes a row that no beam claimed and
-        copies the ancestor's history [0, j) there. Sources and
-        destinations are disjoint, so the copy runs in place."""
-        b, nb, beams, row_off = self.b, self.nb, self.beams, self.row_off
-        src_phys = torch.gather(st.m.reshape(b, nb) - row_off, 1, src)
-        first_claim = ~((src[:, :, None] == src[:, None, :])
-                        & self.earlier).any(2)
-        kept = (src_phys[:, :, None] == beams[None, None, :]).any(1)
-        free_first = torch.argsort(kept.int(), dim=1, stable=True)
-        fork_rank = (torch.cumsum(~first_claim, dim=1) - 1).clamp_min(0)
-        m_new = torch.where(first_claim, src_phys,
-                            torch.gather(free_first, 1, fork_rank))
-        cp = torch.full((b, nb), -1, dtype=torch.long, device=self.dev
-                        ).scatter(1, m_new,
-                                  torch.where(first_claim, -1, src_phys))
-        cp = torch.where(cp >= 0, row_off + cp, -1).reshape(self.bn)
-        c = st.cache
-        permute.copy_on_fork(c.kg, c.vg, cp.int(), j - 1)
-        m_flat = (row_off + m_new).reshape(self.bn)
-        if self.reorder == "cofdense":
-            # back to identity row maps: a dense gather of the gen region
-            st.cache = c._replace(kg=c.kg[:, m_flat], vg=c.vg[:, m_flat])
-            return
-        st.m = m_flat
-        st.inv = (row_off + torch.zeros_like(m_new).scatter(
-            1, m_new, beams.expand(b, nb))).reshape(self.bn)
-
     def reorder_cache(self, st: SimpleNamespace, src: torch.Tensor,
-                      j: gpt_model.Slot) -> None:
+                      j: torch.Tensor) -> None:
         """Apply the beam switch ``src`` (B, nb: each new beam's source
         beam in its row) to the history, after the step that generated j
-        tokens before it."""
-        reorder, s0 = self.reorder, self.s0
-        if reorder in ("none", "ancnone", "splitnone"):
-            return
-        if self.anc or self.ancfull:
-            # slot j-1 was just written by physical == logical beam: stamp it
-            # identity, then compose the whole map with the switch. At j = 0
-            # the "anc" stamp lands on slot 0, as the JAX update's clamped
-            # index does (a later step overwrites it); "ancfull" maps
-            # absolute slots, so its stamp at j = 0 is the prefix's last
-            # slot, in range, as in JAX.
-            if self.ancfull:
-                slot = s0 + j - 1
-            elif torch.is_tensor(j):
-                slot = (j - 1).clamp_min(0)
-            else:
-                slot = max(j - 1, 0)
-            gpt_model.write_slot(st.amap, 2, slot, self.beams)
-            st.amap.copy_(torch.gather(st.amap, 1, src[..., None].expand(
-                -1, -1, st.amap.shape[2])))
-            return
-        if self.cof:
-            self.reorder_cof(st, src, j)
-            return
-        b, nb, cfg = self.b, self.nb, self.cfg
-        src_flat = (self.row_off + src).reshape(self.bn)
-        c = st.cache
-        if reorder == "split":
-            # An index gather of the gen rows, where the JAX package
-            # multiplies by a one-hot (bn, bn) matrix: with one nonzero
-            # term per output the product equals the gather bit for bit
-            # (exact only without TF32 in float32), while the gather moves
-            # each row once and needs no product.
-            st.cache = c._replace(kg=c.kg[:, src_flat], vg=c.vg[:, src_flat])
-        elif reorder in ("full", "flatfull"):
-            st.cache = gpt_model.KVCache(c.k[:, src_flat], c.v[:, src_flat])
-        elif reorder in ("gen", "flat"):
-            for t in c:
-                t[:, :, :, s0:] = t[:, src_flat, :, s0:]
-        elif reorder == "mm":
-            # one-hot product over the beam axis, in the cache's dtype: exact
-            # with one nonzero term per output (float32 needs TF32 off,
-            # PyTorch's default for matmul)
-            onehot = (src[:, :, None] == self.beams[None, None, :]
-                      ).to(self.dtype)
-            for t in c:
-                g = t[:, :, :, s0:].reshape(cfg.layers, b, nb, -1)
-                t[:, :, :, s0:] = torch.einsum("bij,lbjx->lbix", onehot, g
-                                               ).reshape(t[:, :, :, s0:].shape)
-        elif reorder == "blocked":
-            # blocks not yet written are skipped on the host; "the switch is
-            # the identity" stays on the device and selects the block as it
-            # was, so no step waits on the device
-            ident = (src == self.beams[None, :]).all()
-            for lo in range(0, j, _SB):
-                sl = slice(s0 + lo, s0 + min(lo + _SB, self.max_steps))
-                for t in c:
-                    t[:, :, :, sl] = torch.where(ident, t[:, :, :, sl],
-                                                 t[:, src_flat, :, sl])
+        tokens before it: slot j - 1 was just written by physical ==
+        logical beam, so it is stamped identity, then the whole map is
+        composed with the switch. At j = 0 the stamp lands on slot 0, as
+        the JAX update's clamped index does (a later step overwrites
+        it)."""
+        gpt_model.write_slot(st.amap, 2, (j - 1).clamp_min(0), self.beams)
+        st.amap.copy_(torch.gather(st.amap, 1, src[..., None].expand(
+            -1, -1, st.amap.shape[2])))
 
     def process(self, st: SimpleNamespace, cand: torch.Tensor,
                 src_beam: torch.Tensor, tok: torch.Tensor,
-                best_next: torch.Tensor, j: gpt_model.Slot) -> None:
+                best_next: torch.Tensor, j: torch.Tensor) -> None:
         """BeamSearchScorer.process and the finished pool, for a step that
         has generated j tokens before it (an eos hypothesis has length
         j + 1, the eos counted)."""
@@ -880,35 +678,16 @@ class _Beam:
         st.done |= pool_full & (worst >= best_next / norm)
 
     def trunk_step(self, st: SimpleNamespace, emb: torch.Tensor,
-                   j: gpt_model.Slot) -> torch.Tensor:
+                   j: torch.Tensor) -> torch.Tensor:
         """Hidden states (B·nb, C) of the step after j - 1 generated
-        tokens; writes its K/V at gen slot j - 1."""
-        params, cfg, nb = self.params, self.cfg, self.nb
-        if self.ancfull:
-            return gpt_model.trunk_decode_step_anc_full(
-                params, cfg, emb, st.cache.k, st.cache.v, self.s0 + j - 1,
-                st.keep_full, nb, st.amap)
-        if self.anc:
-            return getattr(gpt_model, _ANC_STEPS[self.reorder])(
-                params, cfg, emb, st.cache, j - 1, st.pad_keep, nb, st.amap)
-        if self.cof:
-            # the trunk runs in physical row order: embeddings go in by the
-            # physical → logical map, hidden states come out by the inverse
-            # (both stay the identity on "cofdense")
-            return gpt_model.trunk_decode_step_split(
-                params, cfg, emb[st.inv], st.cache, j - 1, st.pad_keep,
-                nb)[st.m]
-        if self.reorder in _SPLIT:
-            return gpt_model.trunk_decode_step_split(
-                params, cfg, emb, st.cache, j - 1, st.pad_keep, nb)
-        slot = self.s0 + j - 1
-        keep = st.keep_full & (torch.arange(self.s_total, device=self.dev)
-                               <= slot)
-        return gpt_model.trunk_decode_step(params, cfg, emb, st.cache, slot,
-                                           keep)
+        tokens; writes its K/V at gen slot j - 1. The trunk step is read
+        from models/gpt.py at each call, so a caller may wrap it there."""
+        return gpt_model.trunk_decode_step_split_anc(
+            self.params, self.cfg, emb, st.cache, j - 1, st.pad_keep, self.nb,
+            st.amap)
 
 
-# eager "anc" steps a workspace runs on its capture stream before it
+# eager steps a workspace runs on its capture stream before it
 # captures the step
 _GRAPH_WARMUP = 3
 # the share of a card's memory that the workspaces kept between decodes may
@@ -926,14 +705,14 @@ def _keep_bytes(dev: torch.device) -> float:
 
 
 class _Workspace:
-    """The "anc" decode of one shape and setting: its ``_Beam``, its state,
+    """The beam decode of one shape and setting: its ``_Beam``, its state,
     and on a card the step as a CUDA graph, captured once warmed up.
     ``nbytes``: the memory it keeps, its state's tensors and its graph's
     memory pool."""
 
     def __init__(self, beam: _Beam, owner: BeamWorkspaces):
         self.beam, self.owner = beam, owner
-        self.st = beam.new_state(beam.anc_cache())
+        self.st = beam.new_state()
         self.nbytes = sum(t.numel() * t.element_size()
                           for t in (*self.st.cache, *vars(self.st).values())
                           if torch.is_tensor(t))
@@ -942,12 +721,11 @@ class _Workspace:
         self.graph = None
         self.warm = 0
 
-    def step(self, j: int) -> bool:
-        """The step after j generated tokens (``_Beam.step``); True where
-        the graph ran it."""
+    def step(self) -> bool:
+        """The next step (``_Beam.step``); True where the graph ran it."""
         beam, st = self.beam, self.st
         if not self.cuda:
-            beam.step(st, j)
+            beam.step(st)
             return False
         if self.graph is None:
             if self.warm < _GRAPH_WARMUP:
@@ -956,15 +734,15 @@ class _Workspace:
                 # stream, the first launches) done before it
                 self.stream.wait_stream(torch.cuda.current_stream())
                 with torch.cuda.stream(self.stream):
-                    beam.step(st, j)
+                    beam.step(st)
                 torch.cuda.current_stream().wait_stream(self.stream)
                 self.warm += 1
                 return False
-            self.capture(j)
+            self.capture()
         self.graph.replay()
         return True
 
-    def capture(self, j: int) -> None:
+    def capture(self) -> None:
         """Record the step into a CUDA graph without running it. Unlike
         ``torch.cuda.graph``, this keeps the allocator's cache rather than
         emptying it at each capture; the reserve the capture adds is the
@@ -980,7 +758,7 @@ class _Workspace:
         with torch.cuda.stream(self.stream):
             graph.capture_begin()
             try:
-                beam.step(self.st, j)
+                beam.step(self.st)
             finally:
                 graph.capture_end()
         self.nbytes += torch.cuda.memory_reserved(dev) - reserved
@@ -990,7 +768,7 @@ class _Workspace:
 
 
 class BeamWorkspaces:
-    """A caller's "anc" beam decodes kept between calls (an engine keeps
+    """A caller's beam decodes kept between calls (an engine keeps
     one): a workspace for each shape and setting, which holds the decode's
     state and, on a card, its step as a CUDA graph. The key is everything
     the graph holds fixed: the rows, beams, prefix width, cap and dtype,
@@ -1021,8 +799,8 @@ class BeamWorkspaces:
                       * (num_beams * sc.max_mel_tokens + s0)
                       * dtype.itemsize)
             ws = _Workspace(_Beam(params, cfg, sc, generator, num_beams,
-                                  length_penalty, stochastic, "anc", part, b,
-                                  s0, dev, dtype), self)
+                                  length_penalty, stochastic, part, b, s0,
+                                  dev, dtype), self)
         self._ws[key] = ws
         self.trim(dev)
         return ws
@@ -1044,7 +822,7 @@ class BeamWorkspaces:
 
 
 def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
-          length_penalty, stochastic, reorder, live, part: _Rows,
+          length_penalty, stochastic, live, part: _Rows,
           workspaces: Optional[BeamWorkspaces]) -> GenerateResult:
     prefix_emb, pad_keep, live = (part.local(t) for t in
                                   (prefix_emb, pad_keep, live))
@@ -1057,7 +835,7 @@ def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
         ws = workspaces.get(*args, part, b, s0, dev, dtype)
         m = ws.beam
     else:
-        m = _Beam(*args, reorder, part, b, s0, dev, dtype)
+        m = _Beam(*args, part, b, s0, dev, dtype)
     with profiling.span("decode.prefill", device=dev):
         st, h = m.prefill(prefix_emb, pad_keep, live,
                           None if ws is None else ws.st)
@@ -1071,9 +849,9 @@ def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
                 break
         with profiling.span("decode.step") as sp:
             if ws is not None:
-                sp.set(graph=int(ws.step(j)))
+                sp.set(graph=int(ws.step()))
             else:
-                m.step(st, j)
+                m.step(st)
                 sp.set(graph=0)
         j += 1
     return m.finalize(st, j)

@@ -33,10 +33,6 @@ runs BigVGAN, and the halo-cropped outputs are stitched. Two layouts:
   are applied, so with B3 the outputs within its edge span of the true
   stream ends are B3's.
 
-``fuse_bigvgan_params`` + ``_vocode_window_fused`` are the "ref" window's
-grouped form (each stage's resblock branches as one grouped conv per
-pair); no driver calls them, as in the JAX package.
-
 The vocoder's dtype: windows enter in the parameters' dtype; adding the
 float32 speaker conditioning promotes the rest to float32, exactly as the
 JAX package's type promotion does.
@@ -44,14 +40,12 @@ JAX package's type promotion does.
 from __future__ import annotations
 
 import contextlib
-from dataclasses import replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from index_tts_dubbing_tpu_torch import nn
 from index_tts_dubbing_tpu_torch.config import BigVGANConfig
 from index_tts_dubbing_tpu_torch.models import bigvgan, ecapa
 from index_tts_dubbing_tpu_torch.ops.alias_free import (
@@ -228,108 +222,6 @@ def _vocode_window(params: Dict[str, Any], cfg: BigVGANConfig,
     if spk is not None and spk.shape[0] == 1 and latent.shape[0] > 1:
         spk = spk.expand((latent.shape[0],) + spk.shape[1:])
     return bigvgan.generate(params, cfg, latent, spk)
-
-
-def fuse_bigvgan_params(params: Dict[str, Any], cfg: BigVGANConfig
-                        ) -> Dict[str, Any]:
-    """The grouped form of the BigVGAN parameters for ``_vocode_window_fused``:
-    per stage, each of the 3 resblock pairs' first convs (and second convs)
-    of all ``num_kernels`` branches become one grouped conv over the
-    branches' channels side by side, every kernel re-laid as a dense
-    kernel of one common width (taps at their dilated offsets, zeros
-    between them, centred). Pure re-layout and zero padding, built once in
-    float32 on the parameters' device. At the full-width config stage 0's
-    first-conv weights alone are 3 × 51 × 768 × 2304 float32 (~1.1 GB)."""
-    nb = cfg.num_kernels
-    npair = 3
-    dev = params["conv_pre"]["w"].device
-    f32 = lambda t: t.to(dev, torch.float32)
-    fused: Dict[str, Any] = {k: params[k] for k in (
-        "conv_pre", "cond_layer", "conds", "ups", "act_post", "conv_post",
-        "speaker_encoder") if k in params}
-    fused["stages"] = []
-    w1_max = max(d * (k - 1) + 1
-                 for k, ds in zip(cfg.resblock_kernel_sizes,
-                                  cfg.resblock_dilation_sizes) for d in ds)
-    w2_max = max(cfg.resblock_kernel_sizes)
-
-    def place(out: torch.Tensor, wk: torch.Tensor, dilation: int) -> None:
-        """Write the (k, C, C) dilated kernel ``wk`` into the dense
-        (width, C, C) ``out``, centred."""
-        k = wk.shape[0]
-        start = (out.shape[0] - (dilation * (k - 1) + 1)) // 2
-        out[start: start + dilation * (k - 1) + 1: dilation] = f32(wk)
-
-    for i in range(cfg.num_upsamples):
-        ch = cfg.stage_channels(i)
-        z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
-        st = {"w1": z(npair, w1_max, ch, nb * ch), "b1": z(npair, nb * ch),
-              "w2": z(npair, w2_max, ch, nb * ch), "b2": z(npair, nb * ch),
-              **{name: z(npair, nb * ch) for name in
-                 ("alpha1", "beta1", "alpha2", "beta2")}}
-        for j in range(nb):
-            rb = params["resblocks"][i * nb + j]
-            sl = slice(j * ch, (j + 1) * ch)
-            for p in range(npair):
-                place(st["w1"][p, :, :, sl], rb["convs1"][p]["w"],
-                      cfg.resblock_dilation_sizes[j][p])
-                place(st["w2"][p, :, :, sl], rb["convs2"][p]["w"], 1)
-                st["b1"][p, sl] = f32(rb["convs1"][p]["b"])
-                st["b2"][p, sl] = f32(rb["convs2"][p]["b"])
-                for n, act in ((1, rb["acts"][2 * p]), (2, rb["acts"][2 * p + 1])):
-                    st[f"alpha{n}"][p, sl] = f32(act["alpha"])
-                    if "beta" in act:
-                        st[f"beta{n}"][p, sl] = f32(act["beta"])
-        fused["stages"].append(st)
-    return fused
-
-
-def _vocode_window_fused(params: Dict[str, Any], cfg: BigVGANConfig,
-                         latent: torch.Tensor, spk: Optional[torch.Tensor]
-                         ) -> torch.Tensor:
-    """The grouped window form over ``fuse_bigvgan_params``'s tree: windows
-    (B, W, gpt_dim) + speaker embedding ((1|B), 1, spk_dim), or None for
-    the mel vocoder → wav (B, W·upsample), channels-last. Each stage runs its ``num_kernels``
-    resblock branches side by side as 3·C channels: per pair an
-    anti-aliased activation, a grouped dense conv, an activation and a
-    second grouped conv, then the residual; the branches' mean closes the
-    stage. The pairs' activations take the exact route; ``act_post`` reads
-    ``cfg.use_pallas`` (kernel B3 when set), as in ``_vocode_window``. The
-    same function as ``_vocode_window``, with the convs' zero taps and the
-    mean's summation order changing only rounding."""
-    nb = cfg.num_kernels
-    exact = replace(cfg, use_pallas=False)
-    x = nn.conv1d(params["conv_pre"], latent, padding=3)
-    if spk is not None:
-        if spk.shape[0] == 1 and latent.shape[0] > 1:
-            spk = spk.expand((latent.shape[0],) + spk.shape[1:])
-        x = x + nn.conv1d(params["cond_layer"], spk)
-    for i in range(cfg.num_upsamples):
-        u = cfg.upsample_rates[i]
-        k = cfg.upsample_kernel_sizes[i]
-        x = nn.conv_transpose1d(params["ups"][i], x, stride=u,
-                                padding=(k - u) // 2)
-        if cfg.cond_in_each_up_layer and spk is not None:
-            x = x + nn.conv1d(params["conds"][i], spk)
-        st = params["stages"][i]
-        w1_pad = (st["w1"].shape[1] - 1) // 2
-        w2_pad = (st["w2"].shape[1] - 1) // 2
-        xs = x.repeat(1, 1, nb)
-        for p in range(st["w1"].shape[0]):
-            act1 = {"alpha": st["alpha1"][p], "beta": st["beta1"][p]}
-            act2 = {"alpha": st["alpha2"][p], "beta": st["beta2"][p]}
-            h = bigvgan._act(exact, act1, xs)
-            h = nn.conv1d({"w": st["w1"][p], "b": st["b1"][p]}, h,
-                          padding=w1_pad, groups=nb)
-            h = bigvgan._act(exact, act2, h)
-            h = nn.conv1d({"w": st["w2"][p], "b": st["b2"][p]}, h,
-                          padding=w2_pad, groups=nb)
-            xs = xs + h
-        b, t, _ = xs.shape
-        x = xs.reshape(b, t, nb, -1).mean(dim=2)
-    x = bigvgan._act(cfg, params["act_post"], x)
-    x = nn.conv1d(params["conv_post"], x, padding=3)
-    return bigvgan.final(cfg, x)[..., 0]
 
 
 def speaker_embedding(params: Dict[str, Any], mel_ref: torch.Tensor) -> torch.Tensor:

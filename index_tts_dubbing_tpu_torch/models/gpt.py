@@ -3,9 +3,8 @@
 Counterpart of the JAX package's ``models/gpt.py``: the full-sequence
 trunk, prefill and single-token decode over a KV cache that is allocated
 once (``init_cache``) and written in place; the beam decode's split cache
-(prefix once per row, generated region per beam) with its decode steps in
-physical beam order and routed through an ancestry map (four forms), and
-the merged-buffer ancestry step; the mel head, conditioning, and the latent
+(prefix once per row, generated region per beam) with its decode step
+routed through an ancestry map; the mel head, conditioning, and the latent
 pass, bucketed and unbucketed. ``params["blocks"]`` is a list
 of per-layer dicts (``weights.from_jax_params`` unstacks the JAX package's
 stacked layout). Attention is plain matmul → mask → softmax → matmul with
@@ -169,20 +168,12 @@ class SplitCache(NamedTuple):
     """Beam-decode KV cache split into a frozen prefix and a generated
     region. The prefix [cond · text · start_mel] is identical across the nb
     beams of a batch row, so it is stored once per row and shared at
-    attention time; only the generated region exists per beam, and only it
-    is reordered when beams switch ancestry."""
+    attention time; only the generated region exists per beam, and no row
+    of it moves when beams switch ancestry (an ancestry map routes it)."""
     kp: torch.Tensor  # (L, B, H, S0, D) prefix keys, frozen after prefill
     vp: torch.Tensor  # (L, B, H, S0, D)
-    kg: torch.Tensor  # (L, BN, H, G, D), or (L, B, H, nb, G, D) for "anc"
+    kg: torch.Tensor  # (L, B, H, nb, G, D)
     vg: torch.Tensor
-
-
-def init_gen_cache(cfg: GPTConfig, bn: int, gen_len: int, dtype, device
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gen-region cache (L, BN, H, G, D), rows in physical beam order."""
-    shape = (cfg.layers, bn, local_heads(cfg), gen_len, cfg.head_dim)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_gen_cache_anc(cfg: GPTConfig, b: int, nb: int, gen_len: int, dtype,
@@ -216,46 +207,6 @@ def _split_biases(keep_p: torch.Tensor, g_len: int, slot: Slot
     return pbias, torch.where(ar <= slot, 0.0, _NEG).float()
 
 
-def trunk_decode_step_split(params: Params, cfg: GPTConfig, x: torch.Tensor,
-                            cache: SplitCache, slot: int,
-                            keep_p: torch.Tensor, nb: int) -> torch.Tensor:
-    """One beam decode step over a SplitCache whose gen rows are in the
-    order of ``x``. x (BN, C) current-token embeddings; ``slot`` the gen
-    slot this step writes (attention covers gen slots <= slot); keep_p
-    (B, S0) prefix validity, shared by a row's beams. Returns hidden (BN, C)
-    after ln_f. The JAX step returns an updated copy of the cache; this one
-    writes the new K/V slot into ``cache.kg/vg`` in place, which saves a
-    copy of the gen region per layer."""
-    bn = x.shape[0]
-    b = bn // nb
-    h, d = local_heads(cfg), cfg.head_dim
-    g_len, s0 = cache.kg.shape[3], cache.kp.shape[3]
-    pbias, gbias = _split_biases(keep_p, g_len, slot)
-    scale = 1.0 / math.sqrt(d)
-    for li, blk in enumerate(params["blocks"]):
-        q, k, v = _qkv_proj(blk, x)
-        q = q.reshape(bn, h, d)
-        cache.kg[li, :, :, slot] = k.reshape(bn, h, d)
-        cache.vg[li, :, :, slot] = v.reshape(bn, h, d)
-        qf = q.float()
-        # prefix scores: one prefix per batch row, shared by its beams
-        lp = torch.matmul(qf.reshape(b, nb, h, d).transpose(1, 2),
-                          cache.kp[li].float().transpose(-1, -2)) * scale
-        lg = torch.matmul(qf[:, :, None, :],
-                          cache.kg[li].float().transpose(-1, -2))[:, :, 0]
-        lg = (lg * scale).reshape(b, nb, h, g_len).transpose(1, 2)
-        logits = torch.cat([lp + pbias, lg + gbias], dim=-1)   # (B,H,nb,S0+G)
-        w = torch.softmax(logits, dim=-1).to(x.dtype)
-        wp, wg = w[..., :s0], w[..., s0:]
-        o = torch.matmul(wp, cache.vp[li].to(x.dtype)).transpose(1, 2)
-        wg = wg.transpose(1, 2).reshape(bn, h, 1, g_len)
-        o = o.reshape(bn, h, d) + torch.matmul(
-            wg, cache.vg[li].to(x.dtype))[:, :, 0]
-        x = x + _row_linear(blk["attn"]["proj"], o.reshape(bn, h * d))
-        x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
-    return nn.layer_norm(params["ln_f"], x)
-
-
 def _amap_eff(amap: torch.Tensor, slot: Slot, nb: int) -> torch.Tensor:
     """The ancestry map with column ``slot`` stamped identity: the current
     step writes physical beam == logical beam there (the decode loop
@@ -278,213 +229,50 @@ def _heads_major(t: torch.Tensor, b: int, nb: int, h: int, d: int
     return t.reshape(b, nb, h, d).transpose(1, 2)
 
 
-def _split_anc_step(params: Params, cfg: GPTConfig, x: torch.Tensor,
-                    cache: SplitCache, slot: Slot, keep_p: torch.Tensor,
-                    nb: int, amap: torch.Tensor, width: int) -> torch.Tensor:
-    """The ancestry-routed step with its gen attention bounded to gen slots
-    [0, width) (width > slot); see ``trunk_decode_step_split_anc``."""
+def trunk_decode_step_split_anc(params: Params, cfg: GPTConfig,
+                                x: torch.Tensor, cache: SplitCache, slot: Slot,
+                                keep_p: torch.Tensor, nb: int,
+                                amap: torch.Tensor) -> torch.Tensor:
+    """One beam decode step over a SplitCache in the ancestry layout, with
+    no physical reorder. x (BN, C) current-token embeddings; ``slot`` the
+    gen slot this step writes (attention covers gen slots <= slot); keep_p
+    (B, S0) prefix validity, shared by a row's beams; ``amap`` (B, nb, G)
+    maps (logical beam, gen slot) to the physical beam of its row whose
+    cache holds that slot's K/V. Scores are computed against every physical
+    beam of the row and the ancestor's is selected; the value product
+    applies the same selection to the probabilities. The current step
+    writes physical beam == logical beam, so the map at ``slot`` is taken
+    as identity here (the decode loop updates the map after selection).
+    The JAX step returns an updated copy of the cache; this one writes the
+    new K/V slot into ``cache.kg/vg`` in place, which saves a copy of the
+    gen region per layer. ``slot`` may be a 0-d device tensor: the step
+    then reads no host value. Returns hidden (BN, C) after ln_f."""
     bn = x.shape[0]
     b = bn // nb
     h, d = local_heads(cfg), cfg.head_dim
-    s0 = cache.kp.shape[3]
-    pbias, gbias = _split_biases(keep_p, width, slot)
+    g_len, s0 = cache.kg.shape[4], cache.kp.shape[3]
+    pbias, gbias = _split_biases(keep_p, g_len, slot)
     scale = 1.0 / math.sqrt(d)
-    amap_eff = _amap_eff(amap, slot, nb)[:, :, :width]          # (B, nb, W)
-    pick = amap_eff[:, None, :, None, :].expand(b, h, nb, 1, width)
-    onehot = _anc_onehot(amap_eff, nb).to(x.dtype)[:, None]     # (B,1,n,m,W)
+    amap_eff = _amap_eff(amap, slot, nb)                        # (B, nb, G)
+    pick = amap_eff[:, None, :, None, :].expand(b, h, nb, 1, g_len)
+    onehot = _anc_onehot(amap_eff, nb).to(x.dtype)[:, None]     # (B,1,n,m,G)
     for li, blk in enumerate(params["blocks"]):
         q, k, v = _qkv_proj(blk, x)
         write_slot(cache.kg[li], 3, slot, _heads_major(k, b, nb, h, d))
         write_slot(cache.vg[li], 3, slot, _heads_major(v, b, nb, h, d))
         qf = _heads_major(q, b, nb, h, d).float()                # (B, H, nb, D)
         lp = torch.matmul(qf, cache.kp[li].float().transpose(-1, -2)) * scale
-        kg, vg = cache.kg[li], cache.vg[li]
-        if width < kg.shape[3]:          # the first ``width`` gen slots only
-            kg, vg = kg[..., :width, :], vg[..., :width, :]
-        kg = kg.float().reshape(b, h, nb * width, d)
+        kg = cache.kg[li].float().reshape(b, h, nb * g_len, d)
         s_all = (torch.matmul(qf, kg.transpose(-1, -2)) * scale
-                 ).reshape(b, h, nb, nb, width)
+                 ).reshape(b, h, nb, nb, g_len)
         lg = torch.gather(s_all, 3, pick)[:, :, :, 0]   # the ancestor's score
-        logits = torch.cat([lp + pbias, lg + gbias], dim=-1)   # (B,H,nb,S0+W)
+        logits = torch.cat([lp + pbias, lg + gbias], dim=-1)   # (B,H,nb,S0+G)
         w = torch.softmax(logits, dim=-1).to(x.dtype)
         wp, wg = w[..., :s0], w[..., s0:]
-        wgm = (wg[:, :, :, None, :] * onehot).reshape(b, h, nb, nb * width)
-        vg = vg.to(x.dtype).reshape(b, h, nb * width, d)
+        wgm = (wg[:, :, :, None, :] * onehot).reshape(b, h, nb, nb * g_len)
+        vg = cache.vg[li].to(x.dtype).reshape(b, h, nb * g_len, d)
         o = (torch.matmul(wp, cache.vp[li].to(x.dtype))
              + torch.matmul(wgm, vg))                   # (B, H, nb, D)
-        o = o.transpose(1, 2).reshape(bn, h * d)
-        x = x + _row_linear(blk["attn"]["proj"], o)
-        x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
-    return nn.layer_norm(params["ln_f"], x)
-
-
-def trunk_decode_step_split_anc(params: Params, cfg: GPTConfig,
-                                x: torch.Tensor, cache: SplitCache, slot: Slot,
-                                keep_p: torch.Tensor, nb: int,
-                                amap: torch.Tensor) -> torch.Tensor:
-    """One beam decode step over a SplitCache in the ancestry layout, with
-    no physical reorder: ``amap`` (B, nb, G) maps (logical beam, gen slot)
-    to the physical beam of its row whose cache holds that slot's K/V.
-    Scores are computed against every physical beam of the row and the
-    ancestor's is selected; the value product applies the same selection to
-    the probabilities. The current step writes physical beam == logical
-    beam, so the map at ``slot`` is taken as identity here (the decode
-    loop updates the map after selection). Writes the new K/V slot into
-    ``cache.kg/vg`` in place, as ``trunk_decode_step_split`` does. ``slot``
-    may be a 0-d device tensor: the step then reads no host value. Returns
-    hidden (BN, C) after ln_f."""
-    return _split_anc_step(params, cfg, x, cache, slot, keep_p, nb, amap,
-                           cache.kg.shape[4])
-
-
-def sw_widths(g_len: int) -> Tuple[int, ...]:
-    """The gen widths of ``trunk_decode_step_split_anc_sw``: ceil(G/4) and
-    ceil(G/2), each at least 8, those below G, then G."""
-    w1 = max(8, -(-g_len // 4))
-    w2 = max(w1, -(-g_len // 2))
-    return tuple(w for w in (w1, w2) if w < g_len) + (g_len,)
-
-
-def trunk_decode_step_split_anc_sw(params: Params, cfg: GPTConfig,
-                                   x: torch.Tensor, cache: SplitCache,
-                                   slot: int, keep_p: torch.Tensor, nb: int,
-                                   amap: torch.Tensor) -> torch.Tensor:
-    """The ancestry-routed step with occupancy-bounded gen attention: the
-    cross-beam score and value products span only the smallest width of
-    ``sw_widths(G)`` that covers the occupied slots [0, slot], so early
-    steps read a quarter of the gen cache instead of all of it. The slot
-    is a host int, so the width is a plain branch with no device sync.
-    Slots past ``slot`` are masked in every width, so the result equals
-    ``trunk_decode_step_split_anc``'s."""
-    width = next(w for w in sw_widths(cache.kg.shape[4]) if slot + 1 <= w)
-    return _split_anc_step(params, cfg, x, cache, slot, keep_p, nb, amap,
-                           width)
-
-
-def trunk_decode_step_split_anc_bias(params: Params, cfg: GPTConfig,
-                                     x: torch.Tensor, cache: SplitCache,
-                                     slot: int, keep_p: torch.Tensor, nb: int,
-                                     amap: torch.Tensor) -> torch.Tensor:
-    """The ancestry-routed step by selection through a bias: the gen region
-    is attended as one flattened (nb·G) key axis per logical beam, and the
-    ancestry map enters as an additive float32 bias built once per step
-    (-1e30 on every (physical beam, slot) pair that is not the logical
-    beam's ancestor or not yet written). Each layer then has the op
-    structure of the physically-ordered step: one gen score product and
-    one gen value product, no cross-beam selection. An unmasked score is
-    the same q·k product the ordered step computes; masked entries get
-    weight 0. Writes the new K/V slot in place; returns hidden (BN, C)."""
-    bn = x.shape[0]
-    b = bn // nb
-    h, d = local_heads(cfg), cfg.head_dim
-    g_len, s0 = cache.kg.shape[4], cache.kp.shape[3]
-    m_flat = nb * g_len
-    pbias = torch.where(keep_p, 0.0, _NEG).float()[:, None, None, :]
-    scale = 1.0 / math.sqrt(d)
-    occ = torch.arange(g_len, device=x.device) <= slot
-    gbias = torch.where(_anc_onehot(_amap_eff(amap, slot, nb), nb) & occ,
-                        0.0, _NEG).float().reshape(b, 1, nb, m_flat)
-    for li, blk in enumerate(params["blocks"]):
-        q, k, v = _qkv_proj(blk, x)
-        cache.kg[li, :, :, :, slot] = _heads_major(k, b, nb, h, d)
-        cache.vg[li, :, :, :, slot] = _heads_major(v, b, nb, h, d)
-        qf = _heads_major(q, b, nb, h, d).float()                # (B, H, nb, D)
-        lp = torch.matmul(qf, cache.kp[li].float().transpose(-1, -2)) * scale
-        kg = cache.kg[li].float().reshape(b, h, m_flat, d)
-        lg = torch.matmul(qf, kg.transpose(-1, -2)) * scale      # (B,H,nb,M)
-        logits = torch.cat([lp + pbias, lg + gbias], dim=-1)
-        w = torch.softmax(logits, dim=-1).to(x.dtype)
-        wp, wg = w[..., :s0], w[..., s0:]
-        vg = cache.vg[li].to(x.dtype).reshape(b, h, m_flat, d)
-        o = (torch.matmul(wp, cache.vp[li].to(x.dtype))
-             + torch.matmul(wg, vg))
-        o = o.transpose(1, 2).reshape(bn, h * d)
-        x = x + _row_linear(blk["attn"]["proj"], o)
-        x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
-    return nn.layer_norm(params["ln_f"], x)
-
-
-def trunk_decode_step_split_ancg(params: Params, cfg: GPTConfig,
-                                 x: torch.Tensor, cache: SplitCache, slot: int,
-                                 keep_p: torch.Tensor, nb: int,
-                                 amap: torch.Tensor) -> torch.Tensor:
-    """The ancestry routing hoisted out of the layer loop: the map is fixed
-    before the trunk runs, so the whole layer-stacked gen cache is routed
-    up front by two gathers over the beam axis (K and V), and every layer
-    runs the plain per-beam attention against the routed copies. The
-    current K/V go to both the persistent (unrouted) cache and the routed
-    copy at ``slot``, where the effective map is identity. Trades a full
-    K+V copy of the gen region per step for the per-layer cross-beam
-    products. Writes the new K/V slot in place; returns hidden (BN, C)."""
-    bn = x.shape[0]
-    b = bn // nb
-    h, d = local_heads(cfg), cfg.head_dim
-    g_len = cache.kg.shape[4]
-    pbias, gbias = _split_biases(keep_p, g_len, slot)
-    scale = 1.0 / math.sqrt(d)
-    idx = _amap_eff(amap, slot, nb)[None, :, None, :, :, None].expand(
-        cache.kg.shape)                                  # (L, B, H, nb, G, D)
-    kr = torch.gather(cache.kg, 3, idx)
-    vr = torch.gather(cache.vg, 3, idx)
-    for li, blk in enumerate(params["blocks"]):
-        q, k, v = _qkv_proj(blk, x)
-        k, v = _heads_major(k, b, nb, h, d), _heads_major(v, b, nb, h, d)
-        cache.kg[li, :, :, :, slot] = k
-        cache.vg[li, :, :, :, slot] = v
-        kr[li, :, :, :, slot] = k
-        vr[li, :, :, :, slot] = v
-        qf = _heads_major(q, b, nb, h, d).float()                # (B, H, nb, D)
-        lp = torch.matmul(qf, cache.kp[li].float().transpose(-1, -2)) * scale
-        lg = torch.matmul(qf[..., None, :], kr[li].float().transpose(-1, -2)
-                          )[..., 0, :] * scale                   # (B,H,nb,G)
-        logits = torch.cat([lp + pbias, lg + gbias], dim=-1)
-        w = torch.softmax(logits, dim=-1).to(x.dtype)
-        s0 = cache.kp.shape[3]
-        wp, wg = w[..., :s0], w[..., s0:]
-        o = (torch.matmul(wp, cache.vp[li].to(x.dtype))
-             + torch.matmul(wg[..., None, :], vr[li].to(x.dtype))[..., 0, :])
-        o = o.transpose(1, 2).reshape(bn, h * d)
-        x = x + _row_linear(blk["attn"]["proj"], o)
-        x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
-    return nn.layer_norm(params["ln_f"], x)
-
-
-def trunk_decode_step_anc_full(params: Params, cfg: GPTConfig,
-                               x: torch.Tensor, kf: torch.Tensor,
-                               vf: torch.Tensor, slot_abs: int,
-                               keep: torch.Tensor, nb: int,
-                               amap: torch.Tensor) -> torch.Tensor:
-    """The ancestry-routed step over one merged buffer (L, B, H, nb, S, D)
-    that holds the nb-replicated prefix and the gen region: one score
-    product and one value product per layer instead of the split cache's
-    two each. ``amap`` (B, nb, S) routes over absolute slots (over the
-    prefix its values do not matter: the rows are identical); ``keep``
-    (B, S) is the prefix pad mask followed by ones, and slots past
-    ``slot_abs`` are masked. Writes the new K/V at ``slot_abs`` in place;
-    returns hidden (BN, C) after ln_f."""
-    bn = x.shape[0]
-    b = bn // nb
-    h, d = local_heads(cfg), cfg.head_dim
-    s_total = kf.shape[4]
-    ar = torch.arange(s_total, device=x.device)
-    kbias = torch.where(keep & (ar <= slot_abs), 0.0, _NEG
-                        ).float()[:, None, None, :]              # (B,1,1,S)
-    scale = 1.0 / math.sqrt(d)
-    amap_eff = _amap_eff(amap, slot_abs, nb)
-    pick = amap_eff[:, None, :, None, :].expand(b, h, nb, 1, s_total)
-    onehot = _anc_onehot(amap_eff, nb).to(x.dtype)[:, None]     # (B,1,n,m,S)
-    for li, blk in enumerate(params["blocks"]):
-        q, k, v = _qkv_proj(blk, x)
-        kf[li, :, :, :, slot_abs] = _heads_major(k, b, nb, h, d)
-        vf[li, :, :, :, slot_abs] = _heads_major(v, b, nb, h, d)
-        qf = _heads_major(q, b, nb, h, d).float()                # (B, H, nb, D)
-        kk = kf[li].float().reshape(b, h, nb * s_total, d)
-        s_all = (torch.matmul(qf, kk.transpose(-1, -2)) * scale
-                 ).reshape(b, h, nb, nb, s_total)
-        logits = torch.gather(s_all, 3, pick)[:, :, :, 0] + kbias
-        w = torch.softmax(logits, dim=-1).to(x.dtype)
-        wgm = (w[:, :, :, None, :] * onehot).reshape(b, h, nb, nb * s_total)
-        o = torch.matmul(wgm, vf[li].to(x.dtype).reshape(b, h, nb * s_total, d))
         o = o.transpose(1, 2).reshape(bn, h * d)
         x = x + _row_linear(blk["attn"]["proj"], o)
         x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))

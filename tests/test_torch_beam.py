@@ -3,10 +3,10 @@ float32, with the same weights (the JAX init's output carried across by
 weights.from_jax_params) and the same numpy inputs, at the small config of
 tests/test_engine.py:
 
-- the two split-cache decode steps (physical order and ancestry-routed);
+- the ancestry-routed split-cache decode step;
 - the beam warper chain;
-- beam search token-exact for both history strategies ("anc", "cof"), with
-  a dead ``live`` row and length_penalty 0 and 1;
+- beam search token-exact, with a dead ``live`` row and length_penalty 0
+  and 1;
 - beam sampling token-exact, with the port's Gumbel noise replaced by the
   noise the JAX decode draws from the same key.
 
@@ -25,7 +25,6 @@ from index_tts_dubbing_tpu_torch import config as pconfig
 from index_tts_dubbing_tpu_torch import weights
 from index_tts_dubbing_tpu_torch.engine import decode as pdecode
 from index_tts_dubbing_tpu_torch.models import gpt as pgpt
-from index_tts_dubbing_tpu_torch.ops import permute
 
 # tests/test_engine.py:17-23
 GPT_SMALL = dict(model_dim=64, layers=2, heads=4, max_mel_tokens=60,
@@ -78,11 +77,11 @@ def _jax_beam(s, stochastic, lp, key=0):
                                 stochastic=stochastic, live=jnp.asarray(LIVE))
 
 
-def _port_beam(s, stochastic, lp, reorder):
+def _port_beam(s, stochastic, lp):
     sc = pdecode.SamplingConfig(do_sample=stochastic, max_mel_tokens=STEPS)
     return pdecode._beam_decode(s["p"], s["cfg"], sc, s["emb"], s["keep"],
                                 None, NB, lp, stochastic=stochastic,
-                                reorder=reorder, live=torch.from_numpy(LIVE))
+                                live=torch.from_numpy(LIVE))
 
 
 def _assert_same(jres, pres):
@@ -99,24 +98,6 @@ def _split_inputs(rng, cfg, b, s0, g):
     keep[1, :5] = False
     return (f(*shape_p), f(*shape_p), f(*shape_g), f(*shape_g),
             f(b * NB, cfg.model_dim), keep)
-
-
-def test_decode_step_split_matches_jax(setup, rng):
-    jcfg, cfg = setup["jcfg"], setup["cfg"]
-    b, s0, g, slot = 2, 11, 16, 6
-    kp, vp, kg, vg, x, keep = _split_inputs(rng, cfg, b, s0, g)
-    jh, jc = jgpt.trunk_decode_step_split(
-        setup["jp"], jcfg, x, jgpt.SplitCache(kp, vp, kg, vg), slot, keep, NB)
-    t = torch.from_numpy
-    cache = pgpt.SplitCache(t(kp), t(vp), t(kg.copy()), t(vg.copy()))
-    h = pgpt.trunk_decode_step_split(setup["p"], cfg, t(x), cache, slot,
-                                     t(keep), NB)
-    # float32, 2 layers, layer-normed output: < 1e-6 observed
-    np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=1e-5, rtol=0)
-    np.testing.assert_allclose(cache.kg.numpy(), np.asarray(jc.kg), atol=1e-5,
-                               rtol=0)
-    np.testing.assert_allclose(cache.vg.numpy(), np.asarray(jc.vg), atol=1e-5,
-                               rtol=0)
 
 
 def test_decode_step_split_anc_matches_jax(setup, rng):
@@ -160,22 +141,17 @@ def test_warp_scores_matches_jax(rng, kw):
 
 @pytest.mark.parametrize("lp", [0.0, 1.0])
 def test_beam_search_token_exact(setup, lp):
-    """Beam search over both history strategies equals JAX (and so each
-    other), token for token; the dead row yields nothing and at least one
-    live row finishes before the cap."""
+    """Beam search equals JAX token for token; the dead row yields nothing
+    and at least one live row finishes before the cap."""
     jres = _jax_beam(setup, False, lp)
-    anc = _port_beam(setup, False, lp, "anc")
-    cof = _port_beam(setup, False, lp, "cof")
-    _assert_same(jres, anc)
-    _assert_same(jres, cof)
-    lens = anc.lengths.numpy()
+    pres = _port_beam(setup, False, lp)
+    _assert_same(jres, pres)
+    lens = pres.lengths.numpy()
     assert lens[~LIVE].tolist() == [0]
     assert (lens[LIVE] < STEPS).any(), lens
 
 
-@pytest.mark.parametrize("reorder", ["anc", "cof"])
-def test_beam_sample_token_exact_with_the_jax_noise(setup, monkeypatch,
-                                                    reorder):
+def test_beam_sample_token_exact_with_the_jax_noise(setup, monkeypatch):
     """Beam sampling equals JAX when the port draws the JAX noise: the
     Gumbel sample of ``sub0`` from ``split(rng)`` at step 0, then of each
     ``sub`` from ``key, sub = split(key)``."""
@@ -194,31 +170,10 @@ def test_beam_sample_token_exact_with_the_jax_noise(setup, monkeypatch,
         return torch.from_numpy(np.array(next(draws)))
 
     monkeypatch.setattr(pdecode, "_gumbel", jax_gumbel)
-    pres = _port_beam(setup, True, 0.0, reorder)
+    pres = _port_beam(setup, True, 0.0)
     _assert_same(jres, pres)
     lens = pres.lengths.numpy()
     assert (lens[LIVE] < STEPS).any(), lens
-
-
-def test_cof_calls_copy_on_fork_once_per_step(setup, monkeypatch):
-    """The cof decode calls copy_on_fork once per selection step, the first
-    (bound -1) included, through the wrapper, which on the CPU takes the
-    plain version and counts no launch; a strategy the decode does not
-    know raises."""
-    bounds = []
-
-    def spy(kg, vg, cp, bound, gb=64):
-        bounds.append(bound)
-        return real(kg, vg, cp, bound, gb)
-
-    real = permute.copy_on_fork
-    real.launches = 0
-    monkeypatch.setattr(permute, "copy_on_fork", spy)
-    res = _port_beam(setup, False, 0.0, "cof")
-    assert bounds == list(range(-1, res.steps - 1))
-    assert real.launches == 0
-    with pytest.raises(ValueError, match="unknown beam reorder"):
-        _port_beam(setup, False, 0.0, "bogus")
 
 
 def _ws_beam(s, emb, keep, live, stochastic, generator, workspaces,
@@ -281,21 +236,6 @@ def test_workspaces_keep_shapes_apart(setup, monkeypatch, room):
         assert ws.nbytes >= gen_bytes(STEPS) + gen_bytes(STEPS - 13)
     else:
         assert len(ws) == 1 and ws.nbytes >= gen_bytes(STEPS)
-
-
-def test_workspaces_serve_anc_alone(setup):
-    """Another history, or a workspace-less call, leaves the workspaces
-    untouched; "anc" uses them."""
-    ws = pdecode.BeamWorkspaces()
-    live = torch.from_numpy(LIVE)
-    sc = pdecode.SamplingConfig(do_sample=False, max_mel_tokens=STEPS)
-    for reorder in ("cof", "ancsw", "split"):
-        pdecode._beam_decode(setup["p"], setup["cfg"], sc, setup["emb"],
-                             setup["keep"], None, NB, 0.0, stochastic=False,
-                             reorder=reorder, live=live, workspaces=ws)
-    assert len(ws) == 0
-    _ws_beam(setup, setup["emb"], setup["keep"], live, False, None, ws)
-    assert len(ws) == 1
 
 
 def test_engine_passes_workspaces_on_a_card_alone():

@@ -145,20 +145,11 @@ def test_infer_fast_beam_search_matches_jax(engines):
 
 
 def test_requests_outside_the_slice_raise():
-    """A beam history strategy the decode does not know raises, and so does
-    a mesh asked for before a process group exists (the mesh is served:
-    tests/test_torch_mesh_engine.py; every JAX strategy runs:
-    tests/test_torch_histories.py; int8, continuous batching and the v1.0
-    conditioning: tests/test_torch_quant.py, test_torch_continuous.py,
+    """A mesh asked for before a process group exists raises (the mesh is
+    served: tests/test_torch_mesh_engine.py; the beam decode's settings:
+    tests/test_torch_beam_settings.py; int8, continuous batching and the
+    v1.0 conditioning: tests/test_torch_quant.py, test_torch_continuous.py,
     test_torch_legacy_cond.py)."""
-    pcfg = pconfig.EngineConfig(gpt=pconfig.GPTConfig(**GPT_SMALL),
-                                bigvgan=pconfig.BigVGANConfig(**BV_SMALL))
-    eng = PortTTS(config=pcfg, device="cpu", verbose_init=False)
-    with pytest.raises(ValueError, match="unknown beam reorder"):
-        pdecode._beam_decode(eng.params["gpt"], pcfg.gpt,
-                             pdecode.SamplingConfig(), torch.zeros(1, 3, 64),
-                             torch.ones(1, 3, dtype=torch.bool), None, 3, 0.0,
-                             stochastic=False, reorder="bogus")
     with pytest.raises(RuntimeError, match="init_distributed"):
         pmesh.make_mesh(1, 1)
 

@@ -278,26 +278,20 @@ def test_indextts_vocoder_is_bit_identical(monkeypatch):
     assert torch.equal(gen_now, gen_before)
 
 
-@pytest.mark.parametrize("layout", ["ref", "fused"])
-def test_mel_form_runs_on_every_window_layout(layout):
+def test_mel_form_runs_on_every_window_layout():
     """The mel vocoder (no speaker input, the clamp, no conv_post bias) on
-    the channels-last window forms: the "ref" layout's plan at the derived
-    halo and the grouped window give the exact generator's wav to float32
-    rounding (window seams, and the grouped convs' zero taps and the
-    branches' mean, reorder sums only)."""
+    the channels-last "ref" layout: its plan at the derived halo gives the
+    exact generator's wav to float32 rounding (window seams reorder sums
+    only)."""
     torch.set_num_threads(2)
     p = _params(SMALL)
     g = torch.Generator().manual_seed(3)
     lat = torch.randn(2, 100, 100, generator=g)
     with torch.no_grad():
         want = bigvgan.generate(p, SMALL, lat, None)
-        if layout == "ref":
-            voc = WindowedVocoder(p, SMALL, window=16, layout="ref",
-                                  halo=max(receptive_frames(SMALL)))
-            assert lat.shape[1] > voc.window + 2 * voc.halo   # windows ran
-            got = torch.stack(voc.stream_rows(lat, [100, 100]))
-        else:
-            got = voc_mod._vocode_window_fused(
-                voc_mod.fuse_bigvgan_params(p, SMALL), SMALL, lat, None)
+        voc = WindowedVocoder(p, SMALL, window=16, layout="ref",
+                              halo=max(receptive_frames(SMALL)))
+        assert lat.shape[1] > voc.window + 2 * voc.halo   # windows ran
+        got = torch.stack(voc.stream_rows(lat, [100, 100]))
     assert got.shape == want.shape
     assert float((got - want).abs().max()) < 2e-6

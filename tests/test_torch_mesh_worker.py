@@ -60,8 +60,8 @@ def _prefix(params, cfg, z):
 
 @task
 def decode(mesh, z):
-    """The trunk, greedy decode, beam search, beam sampling and "cof"
-    under the mesh, beside the single-process decodes."""
+    """The trunk, greedy decode, beam search and beam sampling under the
+    mesh, beside the single-process decodes."""
     cfg = _cfg(z)
     full = weights.from_jax_params(z["params"], "cpu")
     model = mesh_lib.axis_size(mesh, "model")
@@ -79,17 +79,6 @@ def decode(mesh, z):
     out["greedy_codes"], out["greedy_lens"] = res.codes, res.lengths
     res = pdecode.generate_beam(sharded, cfg, sc, emb, keep, mesh=mesh)
     out["beam_codes"], out["beam_lens"] = res.codes, res.lengths
-
-    from index_tts_dubbing_tpu_torch.ops import permute
-    calls = []
-    real_cof = permute.copy_on_fork
-    permute.copy_on_fork = lambda *a: calls.append(1) or real_cof(*a)
-    for reorder in ("split", "cof"):
-        res = pdecode._beam_decode(sharded, cfg, sc, emb, keep, None, 3, 0.0,
-                                   False, reorder=reorder, mesh=mesh)
-        out[f"{reorder}_codes"] = res.codes
-    permute.copy_on_fork = real_cof
-    out["cof_kernel_calls"] = np.asarray(len(calls))
 
     scs = pdecode.SamplingConfig(do_sample=True,
                                  max_mel_tokens=int(z["steps"]))
