@@ -32,6 +32,13 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
              128, each run on its padded width) × k in (3, 7, 11), float32
              and bfloat16, 2 windows of 4700 samples, timed in float32
              beside its plain version; C = 129 must raise.
+             anc-attention: K3 (the beam step's ancestry attention)
+             against its plain version at the line's and the scene's
+             shapes (ANC_SHAPES), float32 and bfloat16, at a middle and the
+             last slot with a random ancestry map: the written K/V slot bit
+             for bit, o within ANC_TOL; each timed beside its plain
+             version, its bound (the live K/V bytes) and one
+             scaled_dot_product_attention over the same gathered keys.
 4. main    - full-width EngineConfig(), bf16 random weights from seed 0, a
              3 s numpy prompt. Two paths, each with every launch count set
              to 0 just before it and read just after:
@@ -227,6 +234,7 @@ from index_tts_dubbing_tpu_torch.models import conformer
 from index_tts_dubbing_tpu_torch.models import dvae, ecapa
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
 from index_tts_dubbing_tpu_torch.models import legacy_cond
+from index_tts_dubbing_tpu_torch.ops import anc_attention as k3
 from index_tts_dubbing_tpu_torch.ops import cuda_lib
 from index_tts_dubbing_tpu_torch.ops import permute
 from index_tts_dubbing_tpu_torch.ops import resblock_cmajor as k2
@@ -279,6 +287,14 @@ CP_PATTERNS = {
 # fork per group, and the unbounded gather of a reversal
 COF_HEADLINE = ("one_fork_per_group", 299)
 GATHER_HEADLINE = ("reversal", None)
+# K3 at the cells' shapes (B, H, D, S0, G): the line's one row and the
+# scene's 16 rows, 3 beams, at cap 164 (G = the cap)
+ANC_SHAPES = {"line": (1, 16, 64, 70, 164), "scene": (16, 16, 64, 80, 164)}
+# |K3 - plain| <= ANC_TOL * max|plain| (tests/test_torch_anc_attention.py):
+# float32 sums in another order; bfloat16 rounds o once where the plain
+# chain rounds three times, and a weight at a bf16 rounding edge may round
+# the other way
+ANC_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 # windowed vocoder on the kernels vs the exact route, float wav in [-1, 1]:
 # float32 summation order over ~40 chained full-width convs
 VOCODER_TOL = 1e-3
@@ -890,6 +906,102 @@ def check_permutes(gen: torch.Generator) -> dict:
     return out
 
 
+def check_anc_attention(gen: torch.Generator) -> list:
+    """K3 against its plain version at ANC_SHAPES (module docstring, phase
+    kernels/anc-attention). Row r of a shape pads its first 5·(r + 1)
+    prefix keys."""
+    dev, nb, rows = "cuda", 3, []
+    for cell, (b, h, d, s0, g_len) in ANC_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            r = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(dt)
+            qkv = 1.5 * r(b * nb, 3 * h * d)
+            kp, vp = r(b, h, s0, d), r(b, h, s0, d)
+            kg, vg = r(b, h, nb, g_len, d), r(b, h, nb, g_len, d)
+            keep = torch.ones((b, s0), dtype=torch.bool, device=dev)
+            for row in range(b):
+                keep[row, :5 * (row + 1) % s0] = False
+            amap = torch.randint(0, nb, (b, nb, g_len), generator=gen,
+                                 device=dev)
+            for slot in (g_len // 2, g_len - 2):
+                at = torch.tensor(slot, device=dev)
+                kg2, vg2 = kg.clone(), vg.clone()
+                got = k3.anc_attention(qkv, kp, vp, kg, vg, at, keep, amap,
+                                       nb)
+                want = k3.anc_attention_plain(qkv, kp, vp, kg2, vg2, at,
+                                              keep, amap, nb)
+                torch.cuda.synchronize()
+                if not (torch.equal(kg, kg2) and torch.equal(vg, vg2)):
+                    raise AssertionError(f"K3 {cell} {dt} slot {slot}: the "
+                                         "written K/V slot differs")
+                err = (got.float() - want.float()).abs().max().item()
+                top = want.float().abs().max().item()
+                if err > ANC_TOL[dt] * top:
+                    raise AssertionError(f"K3 {cell} {dt} slot {slot}: "
+                                         f"{err} > {ANC_TOL[dt]} * {top}")
+                es = qkv.element_size()
+                # each live K/V row read once: the kept prefix once a
+                # (row, head), the distinct ancestors' rows of each gen
+                # slot < slot; qkv read, the slot's k/v and o written
+                anc = sum(len(set(amap[i, :, s].tolist()))
+                          for i in range(b) for s in range(slot))
+                live = int(keep.sum()) + anc
+                nbytes = es * h * d * (2 * live + 6 * b * nb)
+                # the yardstick: one PyTorch attention over each beam's
+                # gathered keys (prefix, ancestors, the slot), padded
+                # prefix keys masked
+                beams = torch.arange(nb, device=dev)
+                src = amap[:, :, :slot + 1].clone()
+                src[:, :, slot] = beams
+                idx = src[:, None, :, :, None].expand(b, h, nb, slot + 1, d)
+
+                def gathered(pc, gc):
+                    pre = pc[:, :, None].expand(b, h, nb, s0, d)
+                    seq = torch.cat([pre, torch.gather(gc, 2, idx)], 3)
+                    return seq.transpose(1, 2).reshape(b * nb, h,
+                                                       s0 + slot + 1, d)
+                kk, vv = gathered(kp, kg), gathered(vp, vg)
+                q = qkv[:, :h * d].reshape(b * nb, h, 1, d)
+                mask = torch.cat([keep.repeat_interleave(nb, 0),
+                                  torch.ones((b * nb, slot + 1),
+                                             dtype=torch.bool, device=dev)],
+                                 1)[:, None, None, :]
+                rows.append({
+                    "cell": cell, "dtype": str(dt), "B": b, "H": h, "D": d,
+                    "S0": s0, "G": g_len, "slot": slot,
+                    "split": k3.split_of(b, h, k3.resident_ctas(
+                        torch.device(dev), dt, d)),
+                    "max_abs_err": err, "live_bytes": nbytes,
+                    "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                    "ms": cuda_ms(lambda: k3.anc_attention(
+                        qkv, kp, vp, kg, vg, at, keep, amap, nb), 50),
+                    "plain_ms": cuda_ms(lambda: k3.anc_attention_plain(
+                        qkv, kp, vp, kg2, vg2, at, keep, amap, nb), 50),
+                    "library_ms": cuda_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, kk, vv, attn_mask=mask), 50)})
+    return rows
+
+
+def summarize_anc(rows, launches: int) -> dict:
+    """The kernels-line entry of K3: the line's bfloat16 case at the last
+    slot, every case under "cases"."""
+    top = [r for r in rows if r["cell"] == "line"
+           and r["dtype"] == "torch.bfloat16"][-1]
+    return {"name": "anc_attention", "route": "cuda",
+            "source": "index_tts_dubbing_tpu_torch/csrc/anc_attention.cu",
+            "replaces": None, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "library_ms")},
+            "bound_by": "bytes",
+            "per": "one launch (one layer) at the line's bfloat16 shape, "
+                   "slot G - 2; library: scaled_dot_product_attention over "
+                   "the gathered keys, the gather not timed",
+            "launches_note": "launches: the default beam path (three "
+                             "requests); every path in launches_by_path",
+            "cases": rows}
+
+
 def summarize_permute(rows, headline, launches, name, source, replaces,
                       **extra):
     """The kernels-line entry of a permute kernel: the numbers of its
@@ -911,6 +1023,7 @@ def summarize_permute(rows, headline, launches, name, source, replaces,
 
 COUNTED = {"snake_cmajor": k1.snake_cmajor, "resblock_cmajor": k2.resblock_cmajor,
            "snake_clast": b3.snake_clast,
+           "anc_attention": k3.anc_attention,
            "copy_on_fork": permute.copy_on_fork,
            **{fn.__name__: fn for fn in permute.GATHERS}}
 
@@ -2634,6 +2747,12 @@ def main() -> int:
     phase("kernels/permute", t1, "(copy_on_fork and the four gathers equal "
           f"their plain versions in {len(perms['copy_on_fork'])} + "
           f"{len(perms['gather'])} cases)")
+    t1 = time.perf_counter()
+    anc = check_anc_attention(torch.Generator("cuda").manual_seed(8))
+    phase("kernels/anc-attention", t1, json.dumps(
+        [{k: r[k] for k in ("cell", "dtype", "slot", "split", "max_abs_err",
+                            "ms", "plain_ms", "bound_ms", "library_ms")}
+         for r in anc]))
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -2666,6 +2785,8 @@ def main() -> int:
         paths["beam"] = read_counts()
         if paths["beam"]["copy_on_fork"]:
             raise AssertionError("the anc beam path launched copy_on_fork")
+        if not paths["beam"]["anc_attention"]:
+            raise AssertionError("the beam path never launched K3")
 
         t1 = time.perf_counter()
         verr = check_vocoder(tts)
@@ -2796,6 +2917,8 @@ def main() -> int:
                           launches_note="no caller on any path: only the "
                                         "kernel phase launches it"),
     ]
+    kernels.append(summarize_anc(anc, paths["beam"]["anc_attention"]))
+    kernels[-1]["launches_by_path"] = by_path("anc_attention")
     for k, name in zip(kernels, ("snake_cmajor", "resblock_cmajor",
                                  "snake_clast", "copy_on_fork")):
         k["launches_by_path"] = by_path(name)

@@ -36,6 +36,7 @@ import torch
 from index_tts_dubbing_tpu_torch import nn
 from index_tts_dubbing_tpu_torch.config import GPTConfig
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
+from index_tts_dubbing_tpu_torch.ops.anc_attention import anc_attention
 from index_tts_dubbing_tpu_torch.parallel import mesh as tp
 from index_tts_dubbing_tpu_torch.utils import profiling
 
@@ -302,7 +303,7 @@ def _generate(params, cfg, sc, prefix_emb, pad_keep, generator, live,
                 finished = part.all_done(done)
             if finished:
                 break
-        with profiling.span("decode.step", graph=0):
+        with profiling.span("decode.step", graph=0, anc_attn=0):
             # previous token at mel position j+1 (parity quirk)
             emb = (params["mel_emb"]["w"][tok]
                    + params["mel_pos"]["w"][j + 1]).to(prefix_emb.dtype)
@@ -625,7 +626,7 @@ class _Beam:
         composed with the switch. At j = 0 the stamp lands on slot 0, as
         the JAX update's clamped index does (a later step overwrites
         it)."""
-        gpt_model.write_slot(st.amap, 2, (j - 1).clamp_min(0), self.beams)
+        nn.write_slot(st.amap, 2, (j - 1).clamp_min(0), self.beams)
         st.amap.copy_(torch.gather(st.amap, 1, src[..., None].expand(
             -1, -1, st.amap.shape[2])))
 
@@ -668,7 +669,7 @@ class _Beam:
         self.reorder_cache(st, new_src, j)
         # column j is still stop in every row, and a finished row's new
         # token is stop, so the write leaves finished rows as they were
-        gpt_model.write_slot(st.tokens, 1, j, new_tok)
+        nn.write_slot(st.tokens, 1, j, new_tok)
         st.seen.index_put_((self.rows_bn, new_tok), self.true)
         st.prev.copy_(new_tok)
         # done (early_stopping=False): the pool is full and no open beam can
@@ -695,6 +696,13 @@ _GRAPH_WARMUP = 3
 _KEEP_SHARE = 0.125
 
 
+def _anc_launches(fn, *args) -> int:
+    """``fn(*args)``; the K3 launches it made (or captured)."""
+    before = anc_attention.launches
+    fn(*args)
+    return anc_attention.launches - before
+
+
 def _keep_bytes(dev: torch.device) -> float:
     """The memory the workspaces on ``dev`` may keep between decodes:
     ``_KEEP_SHARE`` of a card's; no bound off a card, where the engine
@@ -708,7 +716,9 @@ class _Workspace:
     """The beam decode of one shape and setting: its ``_Beam``, its state,
     and on a card the step as a CUDA graph, captured once warmed up.
     ``nbytes``: the memory it keeps, its state's tensors and its graph's
-    memory pool."""
+    memory pool. ``anc_attn``: the K3 launches a step holds (those of its
+    last eager step, then those its graph captured), one a layer on a
+    card."""
 
     def __init__(self, beam: _Beam, owner: BeamWorkspaces):
         self.beam, self.owner = beam, owner
@@ -720,25 +730,27 @@ class _Workspace:
         self.stream = torch.cuda.Stream(beam.dev) if self.cuda else None
         self.graph = None
         self.warm = 0
+        self.anc_attn = 0
 
     def step(self) -> bool:
         """The next step (``_Beam.step``); True where the graph ran it."""
         beam, st = self.beam, self.st
         if not self.cuda:
-            beam.step(st)
+            self.anc_attn = _anc_launches(beam.step, st)
             return False
         if self.graph is None:
             if self.warm < _GRAPH_WARMUP:
                 # eager on the capture's stream: the step's own work, and
                 # what a capture may not do (cuBLAS's workspace for the
-                # stream, the first launches) done before it
+                # stream, the first launches, the kernel library's load)
+                # done before it
                 self.stream.wait_stream(torch.cuda.current_stream())
                 with torch.cuda.stream(self.stream):
-                    beam.step(st)
+                    self.anc_attn = _anc_launches(beam.step, st)
                 torch.cuda.current_stream().wait_stream(self.stream)
                 self.warm += 1
                 return False
-            self.capture()
+            self.anc_attn = _anc_launches(self.capture)
         self.graph.replay()
         return True
 
@@ -849,10 +861,9 @@ def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
                 break
         with profiling.span("decode.step") as sp:
             if ws is not None:
-                sp.set(graph=int(ws.step()))
+                sp.set(graph=int(ws.step()), anc_attn=ws.anc_attn)
             else:
-                m.step(st)
-                sp.set(graph=0)
+                sp.set(graph=0, anc_attn=_anc_launches(m.step, st))
         j += 1
     return m.finalize(st, j)
 

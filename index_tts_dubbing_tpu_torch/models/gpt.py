@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``models/gpt.py``: the full-sequence
 trunk, prefill and single-token decode over a KV cache that is allocated
 once (``init_cache``) and written in place; the beam decode's split cache
 (prefix once per row, generated region per beam) with its decode step
-routed through an ancestry map; the mel head, conditioning, and the latent
+routed through an ancestry map (its attention a layer is kernel K3 on a
+card, ``ops/anc_attention.py``); the mel head, conditioning, and the latent
 pass, bucketed and unbucketed. ``params["blocks"]`` is a list
 of per-layer dicts (``weights.from_jax_params`` unstacks the JAX package's
 stacked layout). Attention is plain matmul → mask → softmax → matmul with
@@ -25,19 +26,17 @@ were trained with).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from index_tts_dubbing_tpu_torch import nn
 from index_tts_dubbing_tpu_torch.config import GPTConfig
 from index_tts_dubbing_tpu_torch.models import conformer, legacy_cond, perceiver
+from index_tts_dubbing_tpu_torch.ops.anc_attention import Slot, anc_attention
 from index_tts_dubbing_tpu_torch.parallel import mesh as tp
 
 Params = Dict[str, Any]
-# a cache slot: a host int, or a 0-d int64 device tensor (a step counter
-# that lives on the device, as under a CUDA graph)
-Slot = Union[int, torch.Tensor]
 _NEG = -1e30
 
 
@@ -75,16 +74,16 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(w, v)
 
 
-def _qkv_proj(blk: Params, x: torch.Tensor):
-    """The column-parallel qkv projection of ln1(x): (q, k, v), each over
-    this rank's heads."""
+def _qkv_linear(blk: Params, x: torch.Tensor) -> torch.Tensor:
+    """The column-parallel qkv projection of ln1(x): (..., 3·H·D), q, k and
+    v each over this rank's heads."""
     return nn.linear(blk["attn"]["qkv"],
-                     tp.copy_to_model(nn.layer_norm(blk["ln1"], x))
-                     ).chunk(3, dim=-1)
+                     tp.copy_to_model(nn.layer_norm(blk["ln1"], x)))
 
 
 def _qkv(cfg: GPTConfig, blk: Params, x: torch.Tensor):
-    return (nn.split_heads(t, local_heads(cfg)) for t in _qkv_proj(blk, x))
+    return (nn.split_heads(t, local_heads(cfg))
+            for t in _qkv_linear(blk, x).chunk(3, dim=-1))
 
 
 def _block_out(cfg: GPTConfig, blk: Params, x: torch.Tensor,
@@ -186,49 +185,6 @@ def init_gen_cache_anc(cfg: GPTConfig, b: int, nb: int, gen_len: int, dtype,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def write_slot(t: torch.Tensor, dim: int, slot: Slot,
-               value: torch.Tensor) -> None:
-    """``t`` at index ``slot`` of axis ``dim`` set to ``value`` (broadcast to
-    ``t`` without that axis), in place. A 0-d device tensor ``slot`` is read
-    on the device (``index_copy_``), so a CUDA graph can capture the write."""
-    if not torch.is_tensor(slot):
-        t.select(dim, slot).copy_(value)
-        return
-    shape = t.select(dim, 0).shape
-    t.index_copy_(dim, slot.reshape(1), value.expand(shape).unsqueeze(dim))
-
-
-def _split_biases(keep_p: torch.Tensor, g_len: int, slot: Slot
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Additive float32 biases: prefix (B, 1, 1, S0) from the pad mask, gen
-    (G,) opening slots <= ``slot``."""
-    pbias = torch.where(keep_p, 0.0, _NEG).float()[:, None, None, :]
-    ar = torch.arange(g_len, device=keep_p.device)
-    return pbias, torch.where(ar <= slot, 0.0, _NEG).float()
-
-
-def _amap_eff(amap: torch.Tensor, slot: Slot, nb: int) -> torch.Tensor:
-    """The ancestry map with column ``slot`` stamped identity: the current
-    step writes physical beam == logical beam there (the decode loop
-    composes the map after selection)."""
-    beams = torch.arange(nb, device=amap.device, dtype=amap.dtype)
-    at_slot = torch.arange(amap.shape[2], device=amap.device) == slot
-    return torch.where(at_slot, beams[None, :, None], amap)
-
-
-def _anc_onehot(amap_eff: torch.Tensor, nb: int) -> torch.Tensor:
-    """(B, nb_log, nb_phys, S) bool: physical beam m holds logical beam n's
-    slot s."""
-    beams = torch.arange(nb, device=amap_eff.device, dtype=amap_eff.dtype)
-    return amap_eff[:, :, None, :] == beams[None, None, :, None]
-
-
-def _heads_major(t: torch.Tensor, b: int, nb: int, h: int, d: int
-                 ) -> torch.Tensor:
-    """(B·nb, H·D) → (B, H, nb, D)."""
-    return t.reshape(b, nb, h, d).transpose(1, 2)
-
-
 def trunk_decode_step_split_anc(params: Params, cfg: GPTConfig,
                                 x: torch.Tensor, cache: SplitCache, slot: Slot,
                                 keep_p: torch.Tensor, nb: int,
@@ -238,42 +194,18 @@ def trunk_decode_step_split_anc(params: Params, cfg: GPTConfig,
     gen slot this step writes (attention covers gen slots <= slot); keep_p
     (B, S0) prefix validity, shared by a row's beams; ``amap`` (B, nb, G)
     maps (logical beam, gen slot) to the physical beam of its row whose
-    cache holds that slot's K/V. Scores are computed against every physical
-    beam of the row and the ancestor's is selected; the value product
-    applies the same selection to the probabilities. The current step
-    writes physical beam == logical beam, so the map at ``slot`` is taken
-    as identity here (the decode loop updates the map after selection).
-    The JAX step returns an updated copy of the cache; this one writes the
-    new K/V slot into ``cache.kg/vg`` in place, which saves a copy of the
-    gen region per layer. ``slot`` may be a 0-d device tensor: the step
-    then reads no host value. Returns hidden (BN, C) after ln_f."""
-    bn = x.shape[0]
-    b = bn // nb
-    h, d = local_heads(cfg), cfg.head_dim
-    g_len, s0 = cache.kg.shape[4], cache.kp.shape[3]
-    pbias, gbias = _split_biases(keep_p, g_len, slot)
-    scale = 1.0 / math.sqrt(d)
-    amap_eff = _amap_eff(amap, slot, nb)                        # (B, nb, G)
-    pick = amap_eff[:, None, :, None, :].expand(b, h, nb, 1, g_len)
-    onehot = _anc_onehot(amap_eff, nb).to(x.dtype)[:, None]     # (B,1,n,m,G)
+    cache holds that slot's K/V. The current step writes physical beam ==
+    logical beam, so the map at ``slot`` is taken as identity here (the
+    decode loop updates the map after selection). Each layer's attention is
+    ``ops/anc_attention.anc_attention``: kernel K3 on a card, its plain
+    version on the CPU. The JAX step returns an updated copy of the cache;
+    this one writes the new K/V slot into ``cache.kg/vg`` in place, which
+    saves a copy of the gen region per layer. ``slot`` may be a 0-d device
+    tensor: the step then reads no host value. Returns hidden (BN, C)
+    after ln_f."""
     for li, blk in enumerate(params["blocks"]):
-        q, k, v = _qkv_proj(blk, x)
-        write_slot(cache.kg[li], 3, slot, _heads_major(k, b, nb, h, d))
-        write_slot(cache.vg[li], 3, slot, _heads_major(v, b, nb, h, d))
-        qf = _heads_major(q, b, nb, h, d).float()                # (B, H, nb, D)
-        lp = torch.matmul(qf, cache.kp[li].float().transpose(-1, -2)) * scale
-        kg = cache.kg[li].float().reshape(b, h, nb * g_len, d)
-        s_all = (torch.matmul(qf, kg.transpose(-1, -2)) * scale
-                 ).reshape(b, h, nb, nb, g_len)
-        lg = torch.gather(s_all, 3, pick)[:, :, :, 0]   # the ancestor's score
-        logits = torch.cat([lp + pbias, lg + gbias], dim=-1)   # (B,H,nb,S0+G)
-        w = torch.softmax(logits, dim=-1).to(x.dtype)
-        wp, wg = w[..., :s0], w[..., s0:]
-        wgm = (wg[:, :, :, None, :] * onehot).reshape(b, h, nb, nb * g_len)
-        vg = cache.vg[li].to(x.dtype).reshape(b, h, nb * g_len, d)
-        o = (torch.matmul(wp, cache.vp[li].to(x.dtype))
-             + torch.matmul(wgm, vg))                   # (B, H, nb, D)
-        o = o.transpose(1, 2).reshape(bn, h * d)
+        o = anc_attention(_qkv_linear(blk, x), cache.kp[li], cache.vp[li],
+                          cache.kg[li], cache.vg[li], slot, keep_p, amap, nb)
         x = x + _row_linear(blk["attn"]["proj"], o)
         x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
     return nn.layer_norm(params["ln_f"], x)

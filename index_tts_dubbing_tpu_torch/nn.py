@@ -166,6 +166,18 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * d)
 
 
+def write_slot(t: torch.Tensor, dim: int, slot: Union[int, torch.Tensor],
+               value: torch.Tensor) -> None:
+    """``t`` at index ``slot`` of axis ``dim`` set to ``value`` (broadcast to
+    ``t`` without that axis), in place. A 0-d device tensor ``slot`` is read
+    on the device (``index_copy_``), so a CUDA graph can capture the write."""
+    if not torch.is_tensor(slot):
+        t.select(dim, slot).copy_(value)
+        return
+    shape = t.select(dim, 0).shape
+    t.index_copy_(dim, slot.reshape(1), value.expand(shape).unsqueeze(dim))
+
+
 def make_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """True where padded. lengths (B,), out (B, max_len)."""
     ar = torch.arange(max_len, device=lengths.device)[None, :]

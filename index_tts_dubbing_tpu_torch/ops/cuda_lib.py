@@ -54,6 +54,11 @@ SIGNATURES = {
     # k_in, v_in, k_out, v_out, src, L, BN, H, slab_elems, live_elems, esize,
     # stream
     "permute_gen_cache": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
+    # qkv, kp, vp, kg, vg, keep, amap, slot, out, qkv row stride, B, H, nb,
+    # S0, G, D, split, dtype, stream
+    "anc_attention": [_P] * 9 + [_L] + [_I] * 8 + [_P],
+    # dtype, D, &threads_per_sm (int)
+    "anc_attention_resident": [_I, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -194,7 +199,8 @@ _resident = {}
 def resident_threads(fn: str, device: torch.device, code: int,
                      vec: int) -> int:
     """Threads of a kernel that the card holds at once: ``fn`` (a
-    ``*_resident`` entry point) gives them per SM for (dtype code, vec)."""
+    ``*_resident`` entry point) gives them per SM for (dtype code, vec),
+    ``vec`` the kernel's own second parameter (K3's: the head dim)."""
     key = (fn, device, code, vec)
     if key not in _resident:
         per_sm = ctypes.c_int(0)
