@@ -33,8 +33,9 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
              and bfloat16, 2 windows of 4700 samples, timed in float32
              beside its plain version; C = 129 must raise.
              anc-attention: K3 (the beam step's ancestry attention)
-             against its plain version at the line's and the scene's
-             shapes (ANC_SHAPES), float32 and bfloat16, at a middle and the
+             against its plain version at the line's, the scene's and
+             IndexTTS-2's scene's shapes (ANC_SHAPES), float32 and
+             bfloat16, at the first, a middle, the second-to-last and the
              last slot with a random ancestry map: the written K/V slot bit
              for bit, o within ANC_TOL; each timed beside its plain
              version, its bound (the live K/V bytes) and one
@@ -288,8 +289,11 @@ CP_PATTERNS = {
 COF_HEADLINE = ("one_fork_per_group", 299)
 GATHER_HEADLINE = ("reversal", None)
 # K3 at the cells' shapes (B, H, D, S0, G): the line's one row and the
-# scene's 16 rows, 3 beams, at cap 164 (G = the cap)
-ANC_SHAPES = {"line": (1, 16, 64, 70, 164), "scene": (16, 16, 64, 80, 164)}
+# scene's 16 rows, 3 beams, at cap 164 (G = the cap), and scene.v2-bf16's
+# 16 rows of 20 heads at cap 350 (S0: 34 conditioning rows, a 40-token line
+# with start and stop, start_mel)
+ANC_SHAPES = {"line": (1, 16, 64, 70, 164), "scene": (16, 16, 64, 80, 164),
+              "v2scene": (16, 20, 64, 77, 350)}
 # |K3 - plain| <= ANC_TOL * max|plain| (tests/test_torch_anc_attention.py):
 # float32 sums in another order; bfloat16 rounds o once where the plain
 # chain rounds three times, and a weight at a bf16 rounding edge may round
@@ -922,7 +926,7 @@ def check_anc_attention(gen: torch.Generator) -> list:
                 keep[row, :5 * (row + 1) % s0] = False
             amap = torch.randint(0, nb, (b, nb, g_len), generator=gen,
                                  device=dev)
-            for slot in (g_len // 2, g_len - 2):
+            for slot in (0, g_len // 2, g_len - 2, g_len - 1):
                 at = torch.tensor(slot, device=dev)
                 kg2, vg2 = kg.clone(), vg.clone()
                 got = k3.anc_attention(qkv, kp, vp, kg, vg, at, keep, amap,
@@ -942,7 +946,8 @@ def check_anc_attention(gen: torch.Generator) -> list:
                 # each live K/V row read once: the kept prefix once a
                 # (row, head), the distinct ancestors' rows of each gen
                 # slot < slot; qkv read, the slot's k/v and o written
-                anc = sum(len(set(amap[i, :, s].tolist()))
+                am = amap.cpu().numpy()
+                anc = sum(len(set(am[i, :, s]))
                           for i in range(b) for s in range(slot))
                 live = int(keep.sum()) + anc
                 nbytes = es * h * d * (2 * live + 6 * b * nb)
@@ -985,8 +990,9 @@ def check_anc_attention(gen: torch.Generator) -> list:
 def summarize_anc(rows, launches: int) -> dict:
     """The kernels-line entry of K3: the line's bfloat16 case at the last
     slot, every case under "cases"."""
-    top = [r for r in rows if r["cell"] == "line"
-           and r["dtype"] == "torch.bfloat16"][-1]
+    top = next(r for r in rows if r["cell"] == "line"
+               and r["dtype"] == "torch.bfloat16"
+               and r["slot"] == r["G"] - 2)
     return {"name": "anc_attention", "route": "cuda",
             "source": "index_tts_dubbing_tpu_torch/csrc/anc_attention.cu",
             "replaces": None, "launches": launches,
@@ -1324,6 +1330,69 @@ def run_infer_batch(tts: IndexTTS, prompt: str):
         reports.append(rep)
         total = {k: total[k] + counts[k] for k in total}
     return total, reports
+
+
+def run_indextts2(tmp: Path):
+    """IndexTTS-2 at published widths in bf16 (random weights, seed 0): one
+    ``infer_batch`` of four lines (six segments: TEXTS[2] is three) at cap
+    120 under a CPU profiler, so every
+    decode step's span says its K3 launches. Requires every step's
+    ``anc_attn`` at the trunk's 24 layers, K1 and K2 launched by the mel
+    vocoder's per-line plan, and each line's int16 wav at 22 050 Hz of its
+    segments' frames, finite and not constant."""
+    from index_tts_dubbing_tpu_torch.engine.indextts2 import IndexTTS2
+    t0 = time.perf_counter()
+    tts = IndexTTS2(is_fp16=True, seed=0, verbose_init=False)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = str(tmp / "prompt22.wav")
+    tt = np.arange(3 * 22050) / 22050.0
+    wav = (0.3 * np.sin(2 * np.pi * 160.0 * tt) * np.sin(2 * np.pi * 3.0 * tt)
+           + 0.05 * np.random.default_rng(2).standard_normal(tt.size))
+    write_wav(prompt, wav.astype(np.float32)[None], 22050)
+    texts = TEXTS[:3] + [TEXTS[0]]
+    tts.infer_batch(prompt, texts, seed=1, max_mel_tokens=40)   # warm-up
+    zero_counts()
+    profiling.clear()
+    t1 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        outs = tts.infer_batch(prompt, texts, seed=1, max_mel_tokens=120)
+    wall = time.perf_counter() - t1
+    counts = read_counts()
+    (spans,) = profiling.requests()
+    steps = [s.attrs for s in spans if s.name == "decode.step"]
+    if not steps or any(a["anc_attn"] != 24 for a in steps):
+        raise AssertionError(f"indextts2: decode steps' anc_attn "
+                             f"{sorted({a['anc_attn'] for a in steps})}, "
+                             f"want 24")
+    if not (counts["snake_cmajor"] and counts["resblock_cmajor"]):
+        raise AssertionError(f"indextts2: K1/K2 launches {counts}")
+    tp = tts.last_prompt_frames
+    coded = [line for line, c in zip(tts.last_rows, tts.last_codes) if c.size]
+    for i, (sr, w) in enumerate(outs):
+        want = sum(f - tp for f, line in zip(tts.last_frames, coded)
+                   if line == i) * tts.vocoder.upsample
+        if sr != 22050 or w.dtype != np.int16 or w.shape != (want, 1):
+            raise AssertionError(f"indextts2 line {i}: {sr} Hz {w.dtype} "
+                                 f"{w.shape}, want ({want}, 1)")
+        if w.min() == w.max():
+            raise AssertionError(f"indextts2 line {i}: constant wav")
+    check_finite("indextts2", tts.last_mel.cpu().numpy())
+    lt = tts.last_times
+    report = {"init_s": round(init_s, 2), "wall_s": round(wall, 3),
+              "lines": len(outs), "steps": lt.decode_steps,
+              "graph_steps": sum(a["graph"] for a in steps),
+              "anc_attn": 24, "gpt_gen_s": round(lt.gpt_gen, 3),
+              "s2m_s": round(lt.s2m, 3), "bigvgan_s": round(lt.bigvgan, 3),
+              "frames": tts.last_frames,
+              "launches": {k: counts[k] for k in ("snake_cmajor",
+                                                  "resblock_cmajor",
+                                                  "anc_attention")}}
+    del tts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, report
 
 
 # ----------------------------------------------------------- the surfaces
@@ -2813,6 +2882,10 @@ def main() -> int:
             paths[name], report = run()
             phase(f"main/{name}", t1, json.dumps(report))
         phase("main", t0)
+
+        t0 = time.perf_counter()
+        paths["indextts2"], report = run_indextts2(Path(tmp))
+        phase("indextts2", t0, json.dumps(report))
 
         t0 = time.perf_counter()
         for name, run in (("small/infer_fast", lambda: run_small(prompt)),

@@ -158,6 +158,117 @@ class F5Config:
     target_rms: float = 0.1
 
 
+@dataclass(frozen=True)
+class W2VBertConfig:
+    """w2v-BERT 2.0's speech encoder (``facebook/w2v-bert-2.0``'s
+    config.json): a conformer of 24 layers of 1024 over stacked 80-band
+    fbanks, relative-key attention clamped to 64 left and 8 right, a causal
+    depthwise conv of 31. IndexTTS-2 reads hidden state ``out_layer``, the
+    output of that many layers."""
+    hidden: int = 1024
+    layers: int = 24
+    out_layer: int = 17
+    heads: int = 16
+    intermediate: int = 4096
+    feature_dim: int = 160        # 80 fbank bands stacked by stride 2
+    conv_kernel: int = 31
+    left_max_position: int = 64
+    right_max_position: int = 8
+    eps: float = 1e-5
+
+
+@dataclass(frozen=True)
+class CodecConfig:
+    """MaskGCT's semantic codec (IndexTTS-2 ``config.yaml``,
+    ``semantic_codec``): a Vocos ConvNeXt encoder, then one factorized
+    vector quantizer of ``codebook_size`` codes of ``codebook_dim``."""
+    codebook_size: int = 8192
+    hidden_size: int = 1024
+    codebook_dim: int = 8
+    vocos_dim: int = 384
+    vocos_intermediate_dim: int = 2048
+    vocos_num_layers: int = 12
+
+
+@dataclass(frozen=True)
+class CAMPPlusConfig:
+    """3D-Speaker's CAM++ as IndexTTS-2 builds it
+    (``CAMPPlus(feat_dim=80, embedding_size=192)``, the class defaults
+    otherwise)."""
+    feat_dim: int = 80
+    embedding_size: int = 192
+    growth_rate: int = 32
+    bn_size: int = 4
+    init_channels: int = 128
+    m_channels: int = 32
+    block_layers: Sequence[int] = (12, 24, 16)
+    block_dilations: Sequence[int] = (1, 2, 2)
+    kernel: int = 3
+
+
+@dataclass(frozen=True)
+class S2MConfig:
+    """IndexTTS-2's semantic-to-mel stage (``config.yaml`` ``s2mel``): the
+    GPT latent's ``gpt_layer`` (1280 → 256 → 128 → 1024), the
+    interpolating length regulator (1024 → 512, four conv-GroupNorm-Mish
+    blocks), and seed-vc's DiT (13 layers of 512, 8 heads, U-ViT skips, a
+    long skip, an 8-layer WaveNet head of kernel 5) conditioned on time, the
+    prompt mel and a 192-d style. ``intermediate`` is the SwiGLU width
+    gpt-fast's ``ModelArgs`` derives (find_multiple(int(2·4·512/3), 256))."""
+    in_channels: int = 80
+    hidden_dim: int = 512
+    num_heads: int = 8
+    depth: int = 13
+    intermediate: int = 1536
+    style_dim: int = 192
+    content_dim: int = 512
+    regulator_in: int = 1024
+    regulator_blocks: int = 4
+    gpt_dim: int = 1280
+    gpt_layer: Sequence[int] = (256, 128)
+    wavenet_hidden: int = 512
+    wavenet_layers: int = 8
+    wavenet_kernel: int = 5
+    time_freq_dim: int = 256
+    norm_eps: float = 1e-5
+    rope_base: float = 10000.0
+
+
+@dataclass(frozen=True)
+class IndexTTS2Config:
+    """IndexTTS-2 (``IndexTeam/IndexTTS-2`` ``config.yaml``): the GPT over
+    50 Hz semantic codes with its speaker and emotion conditioners and
+    duration rows, the front end (w2v-BERT 2.0, the semantic codec,
+    CAM++), the S2M flow-matching DiT and BigVGAN-v2 22 kHz 80-band ×256.
+    ``cond_input`` is the width of the features both conditioners read;
+    ``emo_*`` the emotion conditioner (a conformer, then a perceiver of
+    ``emo_dim`` with one latent)."""
+    gpt: GPTConfig = field(default_factory=lambda: GPTConfig(
+        model_dim=1280, layers=24, heads=20, max_mel_tokens=1815,
+        max_text_tokens=600))
+    cond_input: int = 1024
+    emo_output_size: int = 512
+    emo_linear_units: int = 1024
+    emo_attention_heads: int = 4
+    emo_num_blocks: int = 4
+    emo_perceiver_mult: int = 2
+    emo_dim: int = 1024
+    w2vbert: W2VBertConfig = field(default_factory=W2VBertConfig)
+    codec: CodecConfig = field(default_factory=CodecConfig)
+    campplus: CAMPPlusConfig = field(default_factory=CAMPPlusConfig)
+    s2m: S2MConfig = field(default_factory=S2MConfig)
+    vocoder: MelVocoderConfig = field(default_factory=lambda: MelVocoderConfig(
+        gpt_dim=80, num_mels=80))
+    mel: MelConfig = field(default_factory=lambda: MelConfig(
+        sample_rate=22050, n_mels=80))
+    semantic_rate: int = 16000
+    code_rate: float = 50.0
+    # mel frames per semantic code (infer_v2: ``code_lens * 1.72``)
+    frames_per_code: float = 1.72
+    diffusion_steps: int = 25
+    cfg_rate: float = 0.7
+
+
 def load_config(path: str | Path) -> EngineConfig:
     """Read the reference's ``config.yaml`` into an ``EngineConfig``."""
     raw: Dict[str, Any] = yaml.safe_load(Path(path).read_text())

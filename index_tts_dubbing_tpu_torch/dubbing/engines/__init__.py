@@ -5,11 +5,13 @@ from typing import Dict, Type
 
 from index_tts_dubbing_tpu_torch.dubbing.engines.base import BaseTTSEngine
 from index_tts_dubbing_tpu_torch.dubbing.engines.index_tts import IndexTTSEngine
+from index_tts_dubbing_tpu_torch.dubbing.engines.index_tts2 import IndexTTS2Engine
 from index_tts_dubbing_tpu_torch.dubbing.engines.f5_tts import F5TTSEngine
 from index_tts_dubbing_tpu_torch.dubbing.engines.cosyvoice import CosyVoiceEngine
 
 TTS_ENGINES: Dict[str, Type[BaseTTSEngine]] = {
     "index_tts": IndexTTSEngine,
+    "index_tts2": IndexTTS2Engine,
     "f5_tts": F5TTSEngine,
     "cosy_voice": CosyVoiceEngine,
 }

@@ -60,14 +60,26 @@ class SamplingConfig:
     typical_mass: float = 0.9
     # HF fake-prefix ids seen by the repetition penalty (all-ones input_ids)
     fake_prefix_id: int = 1
+    # beam sampling's warpers (temperature, top-k, top-p) on each step's
+    # log-probabilities before the beam scores are added, as transformers
+    # runs them since its warpers became logits processors (the release
+    # IndexTTS-2 pins); off: on the sum, as 4.36's beam_sample, where a
+    # temperature compounds over the steps (both keep the same sets at
+    # temperature 1)
+    warp_each_step: bool = False
 
 
 def prepare_prefix_host(cfg: GPTConfig, texts: Sequence[np.ndarray],
-                        pad_to: Optional[int] = None) -> Dict[str, np.ndarray]:
+                        pad_to: Optional[int] = None,
+                        cond_n: Optional[int] = None
+                        ) -> Dict[str, np.ndarray]:
     """Host-side prefix layout: each row stripped of start/stop tokens,
     re-framed as [start, text, stop] and left-padded to the common width.
-    Returns ids/pos/seg/cond_idx arrays of shape (B, 32+L+2)."""
-    cond_n = cfg.condition_num_latent
+    Returns ids/pos/seg/cond_idx arrays of shape (B, cond_n+L+2);
+    ``cond_n``: the conditioning rows (None: the 32 latents; IndexTTS-2
+    adds two duration rows)."""
+    if cond_n is None:
+        cond_n = cfg.condition_num_latent
     rows = []
     l_raw = max(np.asarray(t).reshape(-1).size for t in texts)
     for t in texts:
@@ -596,9 +608,12 @@ class _Beam:
         """2·nb candidates per row, sorted by score: (scores, source beam,
         token, best flat score), each (B, 2·nb) but the last (B,)."""
         part, vocab = self.part, self.vocab
-        scores = logp + beam_scores[:, None]
-        if self.stochastic:
-            scores = _warp_scores(scores, self.sc)
+        if self.stochastic and self.sc.warp_each_step:
+            scores = _warp_scores(logp, self.sc) + beam_scores[:, None]
+        else:
+            scores = logp + beam_scores[:, None]
+            if self.stochastic:
+                scores = _warp_scores(scores, self.sc)
         flat = scores.reshape(self.b, self.nb * vocab)
         z = flat
         if self.stochastic:

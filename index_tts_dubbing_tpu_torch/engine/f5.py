@@ -13,7 +13,8 @@ Rows are padded to the longest; padded keys are masked.
 sway-sampled time grid ``t = linspace(0, 1, nfe + 1)``, ``t += s·(cos(πt/2)
 - 1 + t)``, each one guided DiT forward (models/dit.py) over the
 conditioned rows and the unconditioned ones (cond and text dropped) as one
-batch of twice the rows, ``v = v_c + cfg·(v_c - v_u)``, ``x += Δt·v``. The
+batch of twice the rows, ``v = v_c + cfg·(v_c - v_u)``, ``x += Δt·v``
+(the loop IndexTTS-2's S2M shares, engine/ode.py). The
 prompt's frames are restored from ``cond``, the generated frames of every
 row go through the mel vocoder's window plan
 (``WindowedVocoder.stream_rows``: K1 and K2, exact patches at each line's
@@ -49,6 +50,7 @@ import torch
 
 from index_tts_dubbing_tpu_torch import weights
 from index_tts_dubbing_tpu_torch.config import F5Config
+from index_tts_dubbing_tpu_torch.engine.ode import guided_euler, row_noise
 from index_tts_dubbing_tpu_torch.engine.vocoder import (WindowedVocoder,
                                                         receptive_frames)
 from index_tts_dubbing_tpu_torch.models import dit
@@ -187,13 +189,7 @@ class F5TTS:
         """The ODE's start, (rows, n, M) float32 on the device: row i's
         first durs[i] frames N(0, 1) from a generator on the device seeded
         with ``seed + i``, as (durs[i], M); zeros past them."""
-        dev, m = self.device, self.cfg.dit.mel_dim
-        noise = torch.zeros((len(durs), n, m), dtype=torch.float32,
-                            device=dev)
-        for i, d in enumerate(durs):
-            g = torch.Generator(dev).manual_seed(seed + i)
-            noise[i, :d] = torch.randn((d, m), generator=g, device=dev)
-        return noise
+        return row_noise(durs, n, self.cfg.dit.mel_dim, seed, self.device)
 
     def sample(self, cond: torch.Tensor, ids: List[List[int]],
                durs: List[int], seed: int, times: F5Times,
@@ -233,16 +229,14 @@ class F5TTS:
         blocks, final = dit.modulations(
             p, dit.time_embed(p["time"], dcfg, grid[:-1], self.dtype))
         rope = dit.rotary(n, dcfg.dim_head, dev)
-        x = noise
+
+        def velocity(s, xx):
+            mods = ([mb[s: s + 1] for mb in blocks], final[s: s + 1])
+            return dit.forward(p, dcfg, xx, cond2, text2, mods, valid2, rope)
+
         with profiling.span("f5.ode", device=dev):
-            for s in range(cfg.nfe_step):
-                with profiling.span("f5.nfe", device=dev, step=s):
-                    mods = ([mb[s: s + 1] for mb in blocks], final[s: s + 1])
-                    v2 = dit.forward(p, dcfg, torch.cat([x, x]), cond2,
-                                     text2, mods, valid2, rope)
-                    v_c, v_u = v2.chunk(2)
-                    v = v_c + (v_c - v_u) * cfg.cfg_strength
-                    x = x + dts[s] * v
+            x = guided_euler(noise, dts, velocity, cfg.cfg_strength,
+                             "f5.nfe")
             times.nfe += cfg.nfe_step
             keep = (torch.arange(n, device=dev) < tp)[None, :, None]
             out = torch.where(keep, step_cond, x)

@@ -5,8 +5,9 @@ trunk, prefill and single-token decode over a KV cache that is allocated
 once (``init_cache``) and written in place; the beam decode's split cache
 (prefix once per row, generated region per beam) with its decode step
 routed through an ancestry map (its attention a layer is kernel K3 on a
-card, ``ops/anc_attention.py``); the mel head, conditioning, and the latent
-pass, bucketed and unbucketed. ``params["blocks"]`` is a list
+card, ``ops/anc_attention.py``); the mel head, conditioning (and
+IndexTTS-2's emotion conditioner and conditioning rows, ``v2_conds``), and
+the latent pass, bucketed and unbucketed. ``params["blocks"]`` is a list
 of per-layer dicts (``weights.from_jax_params`` unstacks the JAX package's
 stacked layout). Attention is plain matmul → mask → softmax → matmul with
 float32 scores, as in the JAX trunk.
@@ -227,6 +228,43 @@ def get_conditioning(params: Params, cfg: GPTConfig, mel: torch.Tensor,
     return perceiver.forward(params["perceiver"], x,
                              torch.cat([ones, keep], dim=1),
                              heads=cfg.cond_attention_heads)
+
+
+def get_emo_conditioning(params: Params, feats: torch.Tensor,
+                         lengths: torch.Tensor, heads: int) -> torch.Tensor:
+    """IndexTTS-2's emotion conditioner (``model_v2.py``
+    ``get_emo_conditioning``): features (B, T, 1024) → the conformer
+    ``emo_encoder`` → the one-latent perceiver ``emo_perceiver`` →
+    (B, emo_dim)."""
+    x, keep = conformer.forward(params["emo_encoder"], feats, lengths,
+                                heads=heads)
+    ones = torch.ones((keep.shape[0], 1), dtype=torch.bool,
+                      device=keep.device)
+    return perceiver.forward(params["emo_perceiver"], x,
+                             torch.cat([ones, keep], dim=1), heads=heads)[:, 0]
+
+
+def emotion_vector(params: Params, feats: torch.Tensor,
+                   heads: int) -> torch.Tensor:
+    """The emotion vector (1, model_dim): the emotion conditioner of the
+    features (1, T, 1024) through ``emovec_layer`` then ``emo_layer``.
+    With no emotion prompt IndexTTS-2's ``merge_emovec`` blends the
+    speaker prompt's vector with itself at ``emo_alpha`` 1, which is this
+    vector."""
+    lens = torch.tensor([feats.shape[1]], device=feats.device)
+    e = get_emo_conditioning(params, feats, lens, heads)
+    return nn.linear(params["emo_layer"], nn.linear(params["emovec_layer"], e))
+
+
+def v2_conds(params: Params, spk_latents: torch.Tensor,
+             emo_vec: torch.Tensor) -> torch.Tensor:
+    """IndexTTS-2's conditioning rows (``inference_speech``): the speaker
+    latents plus the emotion vector, then the duration embedding's rows 1
+    and 0 (``speed_emb``, free duration) → (1, latents + 2, model_dim)."""
+    speed = params["speed_emb"]["w"]
+    return torch.cat([spk_latents + emo_vec[:, None].to(spk_latents.dtype),
+                      speed[1][None, None].to(spk_latents.dtype),
+                      speed[0][None, None].to(spk_latents.dtype)], dim=1)
 
 
 def _vocab_head(lin: Params, x: torch.Tensor, vocab: int) -> torch.Tensor:

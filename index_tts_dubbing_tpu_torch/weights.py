@@ -164,6 +164,10 @@ class Init:
     def zeros(self, n):
         return torch.zeros(n, device=self.device)
 
+    def around_one(self, shape, spread: float) -> torch.Tensor:
+        """1 + uniform(±spread): a positive scale."""
+        return 1.0 + self.uniform(shape, spread)
+
     # layers, with the JAX package's shapes and torch-default bounds
     def linear(self, din: int, dout: int, bias: bool = True) -> Params:
         bound = 1.0 / math.sqrt(din)
@@ -248,10 +252,10 @@ def init_perceiver(r: Init, dim: int, dim_context: int, num_latents: int,
     }
 
 
-def init_gpt(r: Init, cfg: GPTConfig) -> Params:
+def init_gpt(r: Init, cfg: GPTConfig, cond_input: int = 100) -> Params:
     d = cfg.model_dim
     return {
-        "cond_encoder": _conformer(r, 100, cfg.cond_output_size,
+        "cond_encoder": _conformer(r, cond_input, cfg.cond_output_size,
                                    cfg.cond_attention_heads,
                                    cfg.cond_linear_units, cfg.cond_num_blocks),
         "perceiver": init_perceiver(r, d, cfg.cond_output_size,
@@ -414,3 +418,172 @@ def init(cfg: EngineConfig, generator: torch.Generator, device="cuda",
     r = Init(generator, device)
     params = {"gpt": init_gpt(r, cfg.gpt), "bigvgan": init_bigvgan(r, cfg.bigvgan)}
     return cast_floating(params, dtype) if dtype != torch.float32 else params
+
+
+# -- IndexTTS-2 ---------------------------------------------------------------
+def _w2vbert(r, c) -> Params:
+    d, dh = c.hidden, c.hidden // c.heads
+    ln = r.layer_norm
+    return {
+        "proj_ln": ln(c.feature_dim), "proj": r.linear(c.feature_dim, d),
+        "layers": [{
+            "ffn1_ln": ln(d), "ffn1": {"inter": r.linear(d, c.intermediate),
+                                       "out": r.linear(c.intermediate, d)},
+            "attn_ln": ln(d),
+            "attn": {"q": r.linear(d, d), "k": r.linear(d, d),
+                     "v": r.linear(d, d), "o": r.linear(d, d),
+                     "distance": {"w": r.normal(
+                         (c.left_max_position + c.right_max_position + 1,
+                          dh), 1.0)}},
+            "conv": {"ln": ln(d),
+                     "pw1": {"w": r.conv1d(d, 2 * d, 1)["w"]},
+                     "dw": {"w": r.conv1d(d, d, c.conv_kernel,
+                                          groups=d)["w"]},
+                     "dw_ln": ln(d), "pw2": {"w": r.conv1d(d, d, 1)["w"]}},
+            "ffn2_ln": ln(d), "ffn2": {"inter": r.linear(d, c.intermediate),
+                                       "out": r.linear(c.intermediate, d)},
+            "final_ln": ln(d),
+        } for _ in range(c.layers)],
+        "stats": {"mean": r.uniform((d,), 0.5), "std": r.around_one((d,), 0.5)},
+    }
+
+
+def _codec(r, c) -> Params:
+    v, h = c.vocos_dim, c.hidden_size
+    return {
+        "embed": r.conv1d(h, v, 7), "norm": r.layer_norm(v),
+        "blocks": [{"dw": r.conv1d(v, v, 7, groups=v),
+                    "norm": r.layer_norm(v),
+                    "pw1": r.linear(v, c.vocos_intermediate_dim),
+                    "pw2": r.linear(c.vocos_intermediate_dim, v),
+                    "gamma": r.uniform((v,), 0.5)}
+                   for _ in range(c.vocos_num_layers)],
+        "final_norm": r.layer_norm(v), "out": r.linear(v, h),
+        "quantizer": {"in_project": r.linear(h, c.codebook_dim),
+                      "codebook": {"w": r.normal(
+                          (c.codebook_size, c.codebook_dim), 1.0)},
+                      "out_project": r.linear(c.codebook_dim, h)},
+    }
+
+
+def _campplus(r, c) -> Params:
+    m = c.m_channels
+    nobias = lambda q: {"w": q["w"]}
+    conv2 = lambda cin, k: nobias(r.conv2d(cin, m, k, k))
+
+    def res(cin, stride):
+        p = {"conv1": conv2(cin, 3), "bn1": r.batch_norm(m),
+             "conv2": conv2(m, 3), "bn2": r.batch_norm(m)}
+        if stride != 1 or cin != m:
+            p.update(shortcut=conv2(cin, 1), shortcut_bn=r.batch_norm(m))
+        return p
+
+    head = {"conv1": conv2(1, 3), "bn1": r.batch_norm(m),
+            "layers": [[res(m, 2), res(m, 1)] for _ in range(2)],
+            "conv2": conv2(m, 3), "bn2": r.batch_norm(m)}
+    ch = m * (c.feat_dim // 8)
+    p: Params = {"head": head,
+                 "tdnn": {"conv": nobias(r.conv1d(ch, c.init_channels, 5)),
+                          "bn": r.batch_norm(c.init_channels)},
+                 "blocks": [], "transits": []}
+    ch = c.init_channels
+    bn_ch = c.bn_size * c.growth_rate
+    for n in c.block_layers:
+        block = []
+        for i in range(n):
+            cin = ch + i * c.growth_rate
+            block.append({
+                "bn1": r.batch_norm(cin),
+                "linear1": nobias(r.conv1d(cin, bn_ch, 1)),
+                "bn2": r.batch_norm(bn_ch),
+                "cam": {"local": nobias(r.conv1d(bn_ch, c.growth_rate,
+                                                 c.kernel)),
+                        "linear1": r.conv1d(bn_ch, bn_ch // 2, 1),
+                        "linear2": r.conv1d(bn_ch // 2, c.growth_rate, 1)}})
+        ch += n * c.growth_rate
+        p["blocks"].append(block)
+        p["transits"].append({"bn": r.batch_norm(ch),
+                              "conv": nobias(r.conv1d(ch, ch // 2, 1))})
+        ch //= 2
+    p["out_bn"] = r.batch_norm(ch)
+    p["dense"] = nobias(r.conv1d(2 * ch, c.embedding_size, 1))
+    p["dense_bn"] = r.batch_norm(c.embedding_size)
+    return p
+
+
+def _t_embedder(r, d: int, freq: int) -> Params:
+    return {"l1": r.linear(freq, d), "l2": r.linear(d, d)}
+
+
+def _s2m(r, c) -> Params:
+    d, m, h = c.hidden_dim, c.in_channels, c.wavenet_hidden
+    ada = lambda: {"proj": r.linear(d, 2 * d), "g": r.ones(d)}
+    dims = (c.gpt_dim, *c.gpt_layer, c.regulator_in)
+    blocks = []
+    for i in range(c.depth):
+        b = {"attn_norm": ada(), "ffn_norm": ada(),
+             "wqkv": r.linear(d, 3 * d, bias=False),
+             "wo": r.linear(d, d, bias=False),
+             "w1": r.linear(d, c.intermediate, bias=False),
+             "w3": r.linear(d, c.intermediate, bias=False),
+             "w2": r.linear(c.intermediate, d, bias=False)}
+        if i > c.depth // 2:
+            b["skip_in"] = r.linear(2 * d, d)
+        blocks.append(b)
+    return {
+        "gpt_layer": [r.linear(a, b) for a, b in zip(dims[:-1], dims[1:])],
+        "regulator": {
+            "in_proj": r.linear(c.regulator_in, c.content_dim),
+            "blocks": [{"conv": r.conv1d(c.content_dim, c.content_dim, 3),
+                        "norm": r.layer_norm(c.content_dim)}
+                       for _ in range(c.regulator_blocks)],
+            "out": r.conv1d(c.content_dim, c.content_dim, 1)},
+        "dit": {
+            "t_embed": _t_embedder(r, d, c.time_freq_dim),
+            "cond_proj": r.linear(c.content_dim, d),
+            "merge": r.linear(d + 2 * m + c.style_dim, d),
+            "blocks": blocks, "norm": ada(),
+            "skip": r.linear(d + m, d),
+            "conv1": r.linear(d, h),
+            "t_embed2": _t_embedder(r, h, c.time_freq_dim),
+            "wn": {"cond": r.conv1d(h, 2 * h * c.wavenet_layers, 1),
+                   "in": [r.conv1d(h, 2 * h, c.wavenet_kernel)
+                          for _ in range(c.wavenet_layers)],
+                   "res_skip": [r.conv1d(h, 2 * h if i < c.wavenet_layers - 1
+                                         else h, 1)
+                                for i in range(c.wavenet_layers)]},
+            "res_proj": r.linear(d, h),
+            "final": {"mod": r.linear(h, 2 * h), "linear": r.linear(h, h)},
+            "conv2": r.conv1d(h, m, 1)},
+    }
+
+
+def indextts2_tree(r, cfg) -> Params:
+    """IndexTTS-2's tree (``IndexTTS2Config``) from the draws of ``r``
+    (an ``Init``, or anything with its methods): {"gpt", "w2vbert",
+    "codec", "campplus", "s2m", "vocoder"}. The GPT adds to IndexTTS's
+    tree the emotion conditioner (``emo_encoder``, ``emo_perceiver``),
+    ``emovec_layer``, ``emo_layer`` and the duration embedding
+    ``speed_emb``; the speaker conditioner reads ``cond_input``-wide
+    features."""
+    g = cfg.gpt
+    gpt = init_gpt(r, g, cond_input=cfg.cond_input)
+    gpt.update(
+        emo_encoder=_conformer(r, cfg.cond_input, cfg.emo_output_size,
+                               cfg.emo_attention_heads, cfg.emo_linear_units,
+                               cfg.emo_num_blocks),
+        emo_perceiver=init_perceiver(r, cfg.emo_dim, cfg.emo_output_size, 1,
+                                     64, cfg.emo_attention_heads,
+                                     cfg.emo_perceiver_mult),
+        emovec_layer=r.linear(cfg.emo_dim, g.model_dim),
+        emo_layer=r.linear(g.model_dim, g.model_dim),
+        speed_emb={"w": r.normal((2, g.model_dim))})
+    return {"gpt": gpt, "w2vbert": _w2vbert(r, cfg.w2vbert),
+            "codec": _codec(r, cfg.codec),
+            "campplus": _campplus(r, cfg.campplus),
+            "s2m": _s2m(r, cfg.s2m), "vocoder": init_bigvgan(r, cfg.vocoder)}
+
+
+def init_indextts2(cfg, generator: torch.Generator, device="cuda") -> Params:
+    """Random IndexTTS-2 parameters (``indextts2_tree``) in float32."""
+    return indextts2_tree(Init(generator, device), cfg)

@@ -152,10 +152,12 @@ def cuda():
 
 
 # (B, H, D, S0, G): the line's one row at a short and a long cap, the
-# scene's 16 rows at cap 164, and the small config's head dim
+# scene's 16 rows at cap 164, IndexTTS-2's scene (16 rows of 20 heads, 34
+# conditioning rows + a 40-token line + start/stop + start_mel, cap 350),
+# and the small config's head dim
 CARD_SHAPES = [(1, 16, 64, 40, 36), (1, 16, 64, 110, 165),
                (16, 16, 64, 70, 165), (16, 16, 64, 110, 165),
-               (4, 4, 16, 33, 72)]
+               (16, 20, 64, 77, 350), (4, 4, 16, 33, 72)]
 
 
 @pytest.mark.card
