@@ -40,6 +40,13 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
              for bit, o within ANC_TOL; each timed beside its plain
              version, its bound (the live K/V bytes) and one
              scaled_dot_product_attention over the same gathered keys.
+             step-norm: K4's two entries (the beam step's bias, residual,
+             LayerNorm and GELU chains) against their plain versions at
+             the four IndexTTS cells' shapes (STEP_NORM_SHAPES: 3 and 48
+             rows of 1024 and 1280 in their dtypes; bias_gelu at 4C): the
+             residual written over y bit for bit, LayerNorm and GELU
+             within STEP_NORM_TOL; each timed as a graph replay beside its
+             plain version and its bytes bound.
 4. main    - full-width EngineConfig(), bf16 random weights from seed 0, a
              3 s numpy prompt. Two paths, each with every launch count set
              to 0 just before it and read just after:
@@ -149,8 +156,9 @@ Phases, each printed with its wall seconds; any failure exits non-zero:
                          mesh=make_mesh(1, 2)) serves one infer_fast with
                          the reference's defaults at cap 80 on the staged
                          route (TEXTS[2], three sentences: 240 frames, so
-                         the stream vocodes in windows on K1 and K2); each rank's wav checked, the two equal, K1
-                         and K2 launched on each rank and B4 on none; float32
+                         the stream vocodes in windows on K1 and K2); each rank's wav checked, the two equal, K1,
+                         K2 and K4's two entries launched on each rank and
+                         B4 on none; float32
                          greedy generate at cap 64 on four rows at (1, 2)
                          and (2, 1) against this process's (equal, or
                          parting first at a near-tie under GAP_TOL); ms a
@@ -242,6 +250,7 @@ from index_tts_dubbing_tpu_torch.ops import resblock_cmajor as k2
 from index_tts_dubbing_tpu_torch.ops import sinc_conv
 from index_tts_dubbing_tpu_torch.ops import snake_clast as b3
 from index_tts_dubbing_tpu_torch.ops import snake_cmajor as k1
+from index_tts_dubbing_tpu_torch.ops import step_norm as k4
 from index_tts_dubbing_tpu_torch.parallel import mesh as mesh_lib
 from index_tts_dubbing_tpu_torch.training import step as train_mod
 from index_tts_dubbing_tpu_torch.training import vocoder_losses as vl
@@ -299,6 +308,17 @@ ANC_SHAPES = {"line": (1, 16, 64, 70, 164), "scene": (16, 16, 64, 80, 164),
 # chain rounds three times, and a weight at a bf16 rounding edge may round
 # the other way
 ANC_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# K4 at the cells' step shapes (rows, C, dtype): the line's 1 × 3 beams and
+# the scene's 16 × 3 of IndexTTS-1.5 at 1024, IndexTTS-2's scene at 1280
+STEP_NORM_SHAPES = {"line-bf16": (3, 1024, torch.bfloat16),
+                    "line-f32": (3, 1024, torch.float32),
+                    "scene-f32": (48, 1024, torch.float32),
+                    "v2scene-bf16": (48, 1280, torch.bfloat16)}
+# |K4 - plain| <= rtol·|plain| + atol elementwise
+# (tests/test_torch_step_norm.py): the LayerNorm's float32 statistics sum in
+# another order, which can move an output across a rounding edge (an ulp of
+# bfloat16 is at most 2^-7 of the value); GELU is the same float32 ops
+STEP_NORM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
 # windowed vocoder on the kernels vs the exact route, float wav in [-1, 1]:
 # float32 summation order over ~40 chained full-width convs
 VOCODER_TOL = 1e-3
@@ -1008,6 +1028,68 @@ def summarize_anc(rows, launches: int) -> dict:
             "cases": rows}
 
 
+def check_step_norm(gen: torch.Generator) -> list:
+    """K4's entries against their plain versions at STEP_NORM_SHAPES
+    (module docstring, phase kernels/step-norm)."""
+    dev, rows = "cuda", []
+    for cell, (r, c, dt) in STEP_NORM_SHAPES.items():
+        rand = lambda *sh, s=1.0: (s * torch.randn(sh, generator=gen,
+                                                   device=dev)).to(dt)
+        rtol, atol = STEP_NORM_TOL[dt]
+        x, y, h = rand(r, c, s=3.0), rand(r, c), rand(r, 4 * c, s=3.0)
+        bias, hb = rand(c, s=0.5), rand(4 * c)
+        p = {"g": 1.0 + rand(c, s=0.1), "b": rand(c, s=0.1)}
+        es = x.element_size()
+        cases = (
+            # x, y, bias, g, b read; y and LN written
+            ("add_layer_norm", es * (4 * r * c + 3 * c),
+             lambda y: k4.add_layer_norm(x, y, bias, p),
+             lambda y: k4.add_layer_norm_plain(x, y, bias, p), y),
+            # h and its bias read, h written
+            ("bias_gelu", es * (2 * r * 4 * c + 4 * c),
+             lambda h: (h, k4.bias_gelu(h, hb)),
+             lambda h: (h, k4.bias_gelu_plain(h, hb, False)), h))
+        for name, nbytes, run, plain, arg in cases:
+            got_res, got = run(arg.clone())
+            want_res, want = plain(arg.clone())
+            torch.cuda.synchronize()
+            if name == "add_layer_norm" and not torch.equal(got_res, want_res):
+                raise AssertionError(f"K4 {name} {cell}: the residual differs")
+            err = (got.float() - want.float()).abs()
+            if (err > rtol * want.float().abs() + atol).any():
+                raise AssertionError(f"K4 {name} {cell}: max error "
+                                     f"{err.max().item()}")
+            # the replays write over one copy of y or h again and again
+            buf = arg.clone()
+            rows.append({"entry": name, "cell": cell, "rows": r,
+                         "C": c if name == "add_layer_norm" else 4 * c,
+                         "dtype": str(dt),
+                         "max_abs_err": err.max().item(), "bytes": nbytes,
+                         "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                         "ms": cuda_ms(lambda: run(buf), 50),
+                         "plain_ms": cuda_ms(lambda: plain(buf), 50)})
+    return rows
+
+
+def summarize_step_norm(rows, launches: int) -> dict:
+    """The kernels-line entry of K4: the line's bfloat16 add_layer_norm,
+    every case under "cases"."""
+    top = next(r for r in rows if r["cell"] == "line-bf16"
+               and r["entry"] == "add_layer_norm")
+    return {"name": "step_norm", "route": "cuda",
+            "source": "index_tts_dubbing_tpu_torch/csrc/step_norm.cu",
+            "replaces": None, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms")},
+            "library_ms": None, "bound_by": "bytes",
+            "per": "one add_layer_norm launch (y and bias) at the line's "
+                   "bfloat16 shape",
+            "launches_note": "launches: add_layer_norm + bias_gelu on the "
+                             "default beam path (three requests); every path "
+                             "in launches_by_path",
+            "cases": rows}
+
+
 def summarize_permute(rows, headline, launches, name, source, replaces,
                       **extra):
     """The kernels-line entry of a permute kernel: the numbers of its
@@ -1030,6 +1112,7 @@ def summarize_permute(rows, headline, launches, name, source, replaces,
 COUNTED = {"snake_cmajor": k1.snake_cmajor, "resblock_cmajor": k2.resblock_cmajor,
            "snake_clast": b3.snake_clast,
            "anc_attention": k3.anc_attention,
+           "add_layer_norm": k4.add_layer_norm, "bias_gelu": k4.bias_gelu,
            "copy_on_fork": permute.copy_on_fork,
            **{fn.__name__: fn for fn in permute.GATHERS}}
 
@@ -1336,8 +1419,9 @@ def run_indextts2(tmp: Path):
     """IndexTTS-2 at published widths in bf16 (random weights, seed 0): one
     ``infer_batch`` of four lines (six segments: TEXTS[2] is three) at cap
     120 under a CPU profiler, so every
-    decode step's span says its K3 launches. Requires every step's
-    ``anc_attn`` at the trunk's 24 layers, K1 and K2 launched by the mel
+    decode step's span says its K3 and K4 launches. Requires every step's
+    ``anc_attn`` at the trunk's 24 layers and ``step_norm`` at 3 × 24 + 1,
+    K1 and K2 launched by the mel
     vocoder's per-line plan, and each line's int16 wav at 22 050 Hz of its
     segments' frames, finite and not constant."""
     from index_tts_dubbing_tpu_torch.engine.indextts2 import IndexTTS2
@@ -1366,6 +1450,10 @@ def run_indextts2(tmp: Path):
         raise AssertionError(f"indextts2: decode steps' anc_attn "
                              f"{sorted({a['anc_attn'] for a in steps})}, "
                              f"want 24")
+    if any(a["step_norm"] != 3 * 24 + 1 for a in steps):
+        raise AssertionError(f"indextts2: decode steps' step_norm "
+                             f"{sorted({a['step_norm'] for a in steps})}, "
+                             f"want {3 * 24 + 1}")
     if not (counts["snake_cmajor"] and counts["resblock_cmajor"]):
         raise AssertionError(f"indextts2: K1/K2 launches {counts}")
     tp = tts.last_prompt_frames
@@ -1383,12 +1471,14 @@ def run_indextts2(tmp: Path):
     report = {"init_s": round(init_s, 2), "wall_s": round(wall, 3),
               "lines": len(outs), "steps": lt.decode_steps,
               "graph_steps": sum(a["graph"] for a in steps),
-              "anc_attn": 24, "gpt_gen_s": round(lt.gpt_gen, 3),
+              "anc_attn": 24, "step_norm": 3 * 24 + 1, "gpt_gen_s": round(lt.gpt_gen, 3),
               "s2m_s": round(lt.s2m, 3), "bigvgan_s": round(lt.bigvgan, 3),
               "frames": tts.last_frames,
               "launches": {k: counts[k] for k in ("snake_cmajor",
                                                   "resblock_cmajor",
-                                                  "anc_attention")}}
+                                                  "anc_attention",
+                                                  "add_layer_norm",
+                                                  "bias_gelu")}}
     del tts
     gc.collect()
     torch.cuda.empty_cache()
@@ -2213,11 +2303,11 @@ def run_mesh_serve(tts: IndexTTS, prompt: str, tmp: Path):
     two ranks on one device, so gloo, with CUDA tensors); the kernels were
     built by this process first, so the ranks load them and do not race the
     build. Each rank's wav is checked (int16 at 24 kHz, finite, not
-    constant, its sentences' frames) and the two must be equal; K1 and K2
-    launch on each rank and B4 on none. Float32 greedy codes at (1, 2) and
-    (2, 1) against this process's ``generate`` on the same prefix: equal,
-    or parting first at a near-tie under GAP_TOL. ms a step of each beside
-    one process."""
+    constant, its sentences' frames) and the two must be equal; K1, K2 and
+    K4's two entries launch on each rank and B4 on none. Float32 greedy
+    codes at (1, 2) and (2, 1) against this process's ``generate`` on the
+    same prefix: equal, or parting first at a near-tie under GAP_TOL. ms a
+    step of each beside one process."""
     cfg = tts.gpt_cfg
     rows = mesh_rows(tts)
     p32 = weights.cast_floating(tts.params["gpt"], torch.float32)
@@ -2285,8 +2375,8 @@ def run_mesh_serve(tts: IndexTTS, prompt: str, tmp: Path):
         raise AssertionError("mesh/serve: the two ranks' wavs differ")
     counts = [json.loads(str(g["counts"])) for g in got]
     for r, c in enumerate(counts):
-        if min(c["snake_cmajor"], c["resblock_cmajor"]) < 1 \
-                or c["copy_on_fork"]:
+        if min(c["snake_cmajor"], c["resblock_cmajor"], c["add_layer_norm"],
+               c["bias_gelu"]) < 1 or c["copy_on_fork"]:
             raise AssertionError(f"mesh/serve rank {r}: launches {c}")
     out = {"backend": str(got[0]["backend"]),
            "ranks": [json.loads(str(g["report"])) for g in got],
@@ -2822,6 +2912,12 @@ def main() -> int:
         [{k: r[k] for k in ("cell", "dtype", "slot", "split", "max_abs_err",
                             "ms", "plain_ms", "bound_ms", "library_ms")}
          for r in anc]))
+    t1 = time.perf_counter()
+    k4_rows = check_step_norm(torch.Generator("cuda").manual_seed(9))
+    phase("kernels/step-norm", t1, json.dumps(
+        [{k: r[k] for k in ("entry", "cell", "max_abs_err", "ms",
+                            "plain_ms", "bound_ms")}
+         for r in k4_rows]))
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -2856,6 +2952,9 @@ def main() -> int:
             raise AssertionError("the anc beam path launched copy_on_fork")
         if not paths["beam"]["anc_attention"]:
             raise AssertionError("the beam path never launched K3")
+        if not (paths["beam"]["add_layer_norm"] and
+                paths["beam"]["bias_gelu"]):
+            raise AssertionError("the beam path never launched K4")
 
         t1 = time.perf_counter()
         verr = check_vocoder(tts)
@@ -2992,6 +3091,10 @@ def main() -> int:
     ]
     kernels.append(summarize_anc(anc, paths["beam"]["anc_attention"]))
     kernels[-1]["launches_by_path"] = by_path("anc_attention")
+    k4_by_path = {p: c.get("add_layer_norm", 0) + c.get("bias_gelu", 0)
+                  for p, c in paths.items()}
+    kernels.append(summarize_step_norm(k4_rows, k4_by_path["beam"]))
+    kernels[-1]["launches_by_path"] = k4_by_path
     for k, name in zip(kernels, ("snake_cmajor", "resblock_cmajor",
                                  "snake_clast", "copy_on_fork")):
         k["launches_by_path"] = by_path(name)

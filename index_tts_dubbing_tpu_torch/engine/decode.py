@@ -36,6 +36,7 @@ import torch
 from index_tts_dubbing_tpu_torch import nn
 from index_tts_dubbing_tpu_torch.config import GPTConfig
 from index_tts_dubbing_tpu_torch.models import gpt as gpt_model
+from index_tts_dubbing_tpu_torch.ops import step_norm
 from index_tts_dubbing_tpu_torch.ops.anc_attention import anc_attention
 from index_tts_dubbing_tpu_torch.parallel import mesh as tp
 from index_tts_dubbing_tpu_torch.utils import profiling
@@ -315,7 +316,8 @@ def _generate(params, cfg, sc, prefix_emb, pad_keep, generator, live,
                 finished = part.all_done(done)
             if finished:
                 break
-        with profiling.span("decode.step", graph=0, anc_attn=0):
+        with profiling.span("decode.step", graph=0, anc_attn=0,
+                            step_norm=0):
             # previous token at mel position j+1 (parity quirk)
             emb = (params["mel_emb"]["w"][tok]
                    + params["mel_pos"]["w"][j + 1]).to(prefix_emb.dtype)
@@ -711,11 +713,11 @@ _GRAPH_WARMUP = 3
 _KEEP_SHARE = 0.125
 
 
-def _anc_launches(fn, *args) -> int:
-    """``fn(*args)``; the K3 launches it made (or captured)."""
-    before = anc_attention.launches
+def _step_launches(fn, *args) -> Tuple[int, int]:
+    """``fn(*args)``; the K3 and the K4 launches it made (or captured)."""
+    anc, norm = anc_attention.launches, step_norm.launches()
     fn(*args)
-    return anc_attention.launches - before
+    return anc_attention.launches - anc, step_norm.launches() - norm
 
 
 def _keep_bytes(dev: torch.device) -> float:
@@ -731,9 +733,10 @@ class _Workspace:
     """The beam decode of one shape and setting: its ``_Beam``, its state,
     and on a card the step as a CUDA graph, captured once warmed up.
     ``nbytes``: the memory it keeps, its state's tensors and its graph's
-    memory pool. ``anc_attn``: the K3 launches a step holds (those of its
-    last eager step, then those its graph captured), one a layer on a
-    card."""
+    memory pool. ``anc_attn`` and ``step_norm``: the K3 and the K4
+    launches a step holds (those of its last eager step, then those its
+    graph captured): on a card one K3 launch a layer and 3 × layers + 1 K4
+    launches."""
 
     def __init__(self, beam: _Beam, owner: BeamWorkspaces):
         self.beam, self.owner = beam, owner
@@ -745,13 +748,13 @@ class _Workspace:
         self.stream = torch.cuda.Stream(beam.dev) if self.cuda else None
         self.graph = None
         self.warm = 0
-        self.anc_attn = 0
+        self.anc_attn = self.step_norm = 0
 
     def step(self) -> bool:
         """The next step (``_Beam.step``); True where the graph ran it."""
         beam, st = self.beam, self.st
         if not self.cuda:
-            self.anc_attn = _anc_launches(beam.step, st)
+            self.anc_attn, self.step_norm = _step_launches(beam.step, st)
             return False
         if self.graph is None:
             if self.warm < _GRAPH_WARMUP:
@@ -761,11 +764,12 @@ class _Workspace:
                 # done before it
                 self.stream.wait_stream(torch.cuda.current_stream())
                 with torch.cuda.stream(self.stream):
-                    self.anc_attn = _anc_launches(beam.step, st)
+                    self.anc_attn, self.step_norm = _step_launches(
+                        beam.step, st)
                 torch.cuda.current_stream().wait_stream(self.stream)
                 self.warm += 1
                 return False
-            self.anc_attn = _anc_launches(self.capture)
+            self.anc_attn, self.step_norm = _step_launches(self.capture)
         self.graph.replay()
         return True
 
@@ -876,9 +880,11 @@ def _beam(params, cfg, sc, prefix_emb, pad_keep, generator, num_beams,
                 break
         with profiling.span("decode.step") as sp:
             if ws is not None:
-                sp.set(graph=int(ws.step()), anc_attn=ws.anc_attn)
+                sp.set(graph=int(ws.step()), anc_attn=ws.anc_attn,
+                       step_norm=ws.step_norm)
             else:
-                sp.set(graph=0, anc_attn=_anc_launches(m.step, st))
+                anc, norm = _step_launches(m.step, st)
+                sp.set(graph=0, anc_attn=anc, step_norm=norm)
         j += 1
     return m.finalize(st, j)
 

@@ -5,11 +5,13 @@ trunk, prefill and single-token decode over a KV cache that is allocated
 once (``init_cache``) and written in place; the beam decode's split cache
 (prefix once per row, generated region per beam) with its decode step
 routed through an ancestry map (its attention a layer is kernel K3 on a
-card, ``ops/anc_attention.py``); the mel head, conditioning (and
-IndexTTS-2's emotion conditioner and conditioning rows, ``v2_conds``), and
-the latent pass, bucketed and unbucketed. ``params["blocks"]`` is a list
-of per-layer dicts (``weights.from_jax_params`` unstacks the JAX package's
-stacked layout). Attention is plain matmul → mask → softmax → matmul with
+card, ``ops/anc_attention.py``, and the bias, residual, LayerNorm and GELU
+work between its GEMMs kernel K4, ``ops/step_norm.py``); the mel head,
+conditioning (and IndexTTS-2's emotion conditioner and conditioning rows,
+``v2_conds``), and the latent pass, bucketed and unbucketed.
+``params["blocks"]`` is a list of per-layer dicts
+(``weights.from_jax_params`` unstacks the JAX package's stacked layout).
+Attention is plain matmul → mask → softmax → matmul with
 float32 scores, as in the JAX trunk.
 
 Under a mesh (parallel/mesh.py) every trunk function runs tensor-parallel
@@ -35,16 +37,19 @@ from index_tts_dubbing_tpu_torch import nn
 from index_tts_dubbing_tpu_torch.config import GPTConfig
 from index_tts_dubbing_tpu_torch.models import conformer, legacy_cond, perceiver
 from index_tts_dubbing_tpu_torch.ops.anc_attention import Slot, anc_attention
+from index_tts_dubbing_tpu_torch.ops.step_norm import add_layer_norm, bias_gelu
 from index_tts_dubbing_tpu_torch.parallel import mesh as tp
 
 Params = Dict[str, Any]
 _NEG = -1e30
 
 
+def _tanh_gelu(cfg: GPTConfig) -> bool:
+    return "tanh" in cfg.activation or cfg.activation == "gelu_new"
+
+
 def _act(cfg: GPTConfig, x: torch.Tensor) -> torch.Tensor:
-    if "tanh" in cfg.activation or cfg.activation == "gelu_new":
-        return nn.gelu_tanh(x)
-    return nn.gelu_exact(x)
+    return nn.gelu_tanh(x) if _tanh_gelu(cfg) else nn.gelu_exact(x)
 
 
 def local_heads(cfg: GPTConfig) -> int:
@@ -57,8 +62,7 @@ def _row_linear(lin: Params, x: torch.Tensor) -> torch.Tensor:
     partial products summed over the axis, then the replicated bias once."""
     if tp.model_size() == 1:
         return nn.linear(lin, x)
-    y = tp.reduce_from_model(nn.linear({k: v for k, v in lin.items()
-                                        if k != "b"}, x))
+    y = tp.reduce_from_model(nn.linear(lin, x, bias=False))
     return y + lin["b"].to(y.dtype) if "b" in lin else y
 
 
@@ -203,13 +207,36 @@ def trunk_decode_step_split_anc(params: Params, cfg: GPTConfig,
     this one writes the new K/V slot into ``cache.kg/vg`` in place, which
     saves a copy of the gen region per layer. ``slot`` may be a 0-d device
     tensor: the step then reads no host value. Returns hidden (BN, C)
-    after ln_f."""
-    for li, blk in enumerate(params["blocks"]):
-        o = anc_attention(_qkv_linear(blk, x), cache.kp[li], cache.vp[li],
-                          cache.kg[li], cache.vg[li], slot, keep_p, amap, nb)
-        x = x + _row_linear(blk["attn"]["proj"], o)
-        x = x + _mlp(cfg, blk["mlp"], nn.layer_norm(blk["ln2"], x))
-    return nn.layer_norm(params["ln_f"], x)
+    after ln_f.
+
+    Between the GEMMs a layer runs three ``ops/step_norm`` calls (kernel
+    K4 on a card, its plain version on the CPU): the residual add of the
+    attention's projection with its bias and ln2, the fc bias with the
+    activation, the residual add of the MLP's projection with its bias and
+    the next layer's ln1 (``ln_f`` after the last); layer 0's ln1 is one
+    more. Under a mesh the row-parallel products are reduced before K4
+    adds their bias, once, as ``_row_linear`` does; the fc is
+    column-parallel, so ``bias_gelu`` takes each rank's shard with its own
+    slice of the bias."""
+    blocks = params["blocks"]
+    erf = not _tanh_gelu(cfg)
+    x, h = add_layer_norm(x, None, None, blocks[0]["ln1"])
+    for li, blk in enumerate(blocks):
+        attn, mlp = blk["attn"], blk["mlp"]
+        o = anc_attention(nn.linear(attn["qkv"], tp.copy_to_model(h)),
+                          cache.kp[li], cache.vp[li], cache.kg[li],
+                          cache.vg[li], slot, keep_p, amap, nb)
+        x, h = add_layer_norm(
+            x, tp.reduce_from_model(nn.linear(attn["proj"], o, bias=False)),
+            attn["proj"].get("b"), blk["ln2"])
+        a = bias_gelu(nn.linear(mlp["fc"], tp.copy_to_model(h), bias=False),
+                      mlp["fc"].get("b"), erf)
+        x, h = add_layer_norm(
+            x, tp.reduce_from_model(nn.linear(mlp["proj"], a, bias=False)),
+            mlp["proj"].get("b"),
+            blocks[li + 1]["ln1"] if li + 1 < len(blocks)
+            else params["ln_f"])
+    return h
 
 
 def get_conditioning(params: Params, cfg: GPTConfig, mel: torch.Tensor,

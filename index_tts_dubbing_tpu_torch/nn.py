@@ -25,7 +25,9 @@ Params = Dict[str, Any]
 Padding = Union[int, Tuple[int, int]]
 
 
-def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+def linear(p: Params, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+    """x @ w, then ``p["b"]`` where the layer has one and ``bias`` is set
+    (a caller that adds the bias itself passes ``bias=False``)."""
     if "w_q" in p:
         # weight-only int8 (utils/quant.py): the int8 weight cast to x's
         # dtype for the product, then the per-column scale on the (much
@@ -33,7 +35,7 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x, p["w_q"].to(x.dtype)) * p["scale"].to(x.dtype)
     else:
         y = torch.matmul(x, p["w"].to(x.dtype))
-    if "b" in p:
+    if bias and "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
 

@@ -59,6 +59,10 @@ SIGNATURES = {
     "anc_attention": [_P] * 9 + [_L] + [_I] * 8 + [_P],
     # dtype, D, &threads_per_sm (int)
     "anc_attention_resident": [_I, _I, _P],
+    # x, y, bias, g, b, out, R, C, eps, dtype, stream
+    "add_layer_norm": [_P] * 6 + [_I, _I, ctypes.c_float, _I, _P],
+    # h, bias, R, N, erf form, dtype, stream
+    "bias_gelu": [_P, _P] + [_I] * 4 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

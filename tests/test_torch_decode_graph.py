@@ -11,8 +11,9 @@ generator state, which both decodes leave equal; the same with int8
 weights; two decodes of one shape issued back to back, the first's
 result read only after the second has run, each equal to an eager
 decode; and workspaces past their byte budget dropped and captured
-anew. Every step, graphed or eager, runs its attention on kernel K3: each
-captured step holds one K3 launch a layer, and the plain chain is never
+anew. Every step, graphed or eager, runs its attention on kernel K3 and
+the work between its GEMMs on kernel K4: each captured step holds one K3
+launch a layer and 3 × layers + 1 K4 launches, and neither plain chain is
 reached."""
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from index_tts_dubbing_tpu_torch import config as pconfig
 from index_tts_dubbing_tpu_torch import weights
 from index_tts_dubbing_tpu_torch.engine import decode
 from index_tts_dubbing_tpu_torch.ops import anc_attention as k3
+from index_tts_dubbing_tpu_torch.ops import step_norm as k4
 from index_tts_dubbing_tpu_torch.utils.quant import quantize_gpt_int8
 
 GPT_SMALL = dict(model_dim=64, layers=2, heads=4, max_mel_tokens=200,
@@ -76,7 +78,7 @@ def _assert_same(a, b):
 
 
 def _no_plain(*args, **kwargs):
-    raise AssertionError("a CUDA tensor reached the plain attention chain")
+    raise AssertionError("a CUDA tensor reached a plain chain")
 
 
 def _graphed_against_eager(cuda, dtype, stochastic, int8=False):
@@ -90,17 +92,22 @@ def _graphed_against_eager(cuda, dtype, stochastic, int8=False):
         gen_eager.manual_seed(i)
         graphed = _decode(cfg, p, prefix, cap, stochastic,
                           gen_graph if stochastic else None, ws)
-        before = k3.anc_attention.launches
+        before = k3.anc_attention.launches, k4.launches()
         eager = _decode(cfg, p, prefix, cap, stochastic,
                         gen_eager if stochastic else None, None)
-        # the eager decode: one K3 launch a layer at every step after step 0
-        assert k3.anc_attention.launches - before == \
-            cfg.layers * (eager.steps - 1)
+        # the eager decode: one K3 launch a layer and 3 × layers + 1 K4
+        # launches at every step after step 0
+        assert (k3.anc_attention.launches - before[0],
+                k4.launches() - before[1]) == \
+            (cfg.layers * (eager.steps - 1),
+             (3 * cfg.layers + 1) * (eager.steps - 1))
         _assert_same(graphed, eager)
         assert torch.equal(gen_graph.get_state(), gen_eager.get_state())
     assert ws.captures == len(KEYS) and len(ws) == len(KEYS)
-    # each captured step holds one K3 launch a layer
-    assert [w.anc_attn for w in ws._ws.values()] == [cfg.layers] * len(KEYS)
+    # each captured step holds one K3 launch a layer and 3 × layers + 1 K4
+    # launches
+    assert [(w.anc_attn, w.step_norm) for w in ws._ws.values()] == \
+        [(cfg.layers, 3 * cfg.layers + 1)] * len(KEYS)
 
 
 @pytest.mark.card
@@ -110,6 +117,8 @@ def _graphed_against_eager(cuda, dtype, stochastic, int8=False):
                          ids=["float32", "bfloat16"])
 def test_graphed_decode_equals_eager(cuda, dtype, stochastic, monkeypatch):
     monkeypatch.setattr(k3, "anc_attention_plain", _no_plain)
+    monkeypatch.setattr(k4, "add_layer_norm_plain", _no_plain)
+    monkeypatch.setattr(k4, "bias_gelu_plain", _no_plain)
     _graphed_against_eager(cuda, dtype, stochastic)
 
 

@@ -198,13 +198,13 @@ def test_one_request_with_nested_spans(runs, case):
 @pytest.mark.parametrize("case", list(CASES))
 def test_steps_and_requests_record_their_graphs(runs, case):
     """On the CPU no step replays a CUDA graph and no step launches kernel
-    K3: every ``decode.step`` records ``graph`` 0 and ``anc_attn`` 0, and
-    the request ``graph_captures`` 0."""
+    K3 or K4: every ``decode.step`` records ``graph`` 0, ``anc_attn`` 0
+    and ``step_norm`` 0, and the request ``graph_captures`` 0."""
     (spans,) = runs[case]["requests"]
     assert spans[0].attrs["graph_captures"] == 0
     steps = [s for s in spans if s.name == "decode.step"]
-    assert steps and all(s.attrs == {"graph": 0, "anc_attn": 0}
-                         for s in steps)
+    assert steps and all(s.attrs == {"graph": 0, "anc_attn": 0,
+                                     "step_norm": 0} for s in steps)
 
 
 @pytest.mark.parametrize("case", list(CASES))
